@@ -39,6 +39,17 @@ def lidar_ray_grid(cfg: GlobalConfig, half: int = 0,
   return d.astype(np.float32)
 
 
+def full_lidar_grid(cfg: GlobalConfig, decimate: int = 1) -> np.ndarray:
+  """Both half-rotations side by side, [C, 2A, 3]: one full 360° sweep.
+
+  Training renders this, so that the BEV histogram covers what the sensor
+  agent builds at inference (the live half sweep merged with the buffered
+  previous one)."""
+  return np.concatenate([lidar_ray_grid(cfg, half=0, decimate=decimate),
+                         lidar_ray_grid(cfg, half=1, decimate=decimate)],
+                        axis=1)
+
+
 def render_lidar(cfg: GlobalConfig, maps: MapStack, scene: Scene,
                  state: SimState, ray_grid, uniform=None,
                  per_episode: bool = False, generator=None):

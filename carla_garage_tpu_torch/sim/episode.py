@@ -6,10 +6,12 @@ masking, not branching, and a tick makes no host sync, so a later step can
 capture a chunk of ticks as one CUDA graph. ``rollout`` is a Python loop
 over ticks where the JAX package scans.
 
-Randomness: a policy draws its noise from the ``torch.Generator`` passed
-to ``sim_step`` / ``rollout``, or takes it as explicit tensors in
-``draws`` (see ``agents/sensor_agent.py``). Scenarios are not ported yet:
-a scene must carry none.
+The policy is the privileged expert (``sim/expert.expert_step``) unless
+the caller passes another, such as the sensor agent's. Randomness: a
+policy draws its noise from the ``torch.Generator`` passed to ``sim_step``
+/ ``rollout``, or takes it as explicit tensors in ``draws`` (see
+``sim/expert.py`` and ``agents/sensor_agent.py``). Scenarios are not
+ported yet: a scene must carry none.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from carla_garage_tpu_torch.config import GlobalConfig
 from carla_garage_tpu_torch.maps.town_map import LaneGraph, MapStack
 from carla_garage_tpu_torch.sim.criteria import criteria_step, episode_done
 from carla_garage_tpu_torch.sim.dynamics import bicycle_step
+from carla_garage_tpu_torch.sim.expert import expert_step
 from carla_garage_tpu_torch.sim.geometry import normalize_angle
 from carla_garage_tpu_torch.sim.traffic import traffic_step, walker_step
 from carla_garage_tpu_torch.structs import Scene, SimState, tree_map
@@ -42,7 +45,7 @@ def freeze_done(done: torch.Tensor, old, new):
 
 @torch.no_grad()
 def sim_step(cfg: GlobalConfig, maps: MapStack, lanes: LaneGraph,
-             scene: Scene, state: SimState, policy: PolicyFn,
+             scene: Scene, state: SimState, policy: PolicyFn = expert_step,
              generator: torch.Generator | None = None,
              draws: dict | None = None) -> SimState:
   """Advance the whole batch one tick.
@@ -72,7 +75,8 @@ def sim_step(cfg: GlobalConfig, maps: MapStack, lanes: LaneGraph,
 
 
 def rollout(cfg: GlobalConfig, maps: MapStack, lanes: LaneGraph,
-            scene: Scene, state: SimState, n_ticks: int, policy: PolicyFn,
+            scene: Scene, state: SimState, n_ticks: int,
+            policy: PolicyFn = expert_step,
             generator: torch.Generator | None = None) -> SimState:
   """Run n_ticks of simulation, drawing every tick's noise from
   `generator`."""

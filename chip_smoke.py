@@ -1,29 +1,50 @@
-"""Drive the PyTorch port's sensor-on closed loop on one NVIDIA card.
+"""Drive the PyTorch port's main paths on one NVIDIA card.
 
   python3 chip_smoke.py                     # build, check, drive
-  python3 chip_smoke.py --profile out.txt   # and write a device-time
-                                            # profile of two ticks there
+  python3 chip_smoke.py --profile out.txt   # and write device-time
+                                            # profiles of two ticks and
+                                            # one training step there
 
 Phases, each of which fails the run if it fails:
-  1. card: print the card's name and power limit; build the port's CUDA
-     kernel from its source;
-  2. reference: three ticks of the port at a small size (B=2, micro model,
-     float32, TF32 off) on the card and on the CPU, from the same weights
-     and draws; the CPU run is the port's plain path, which the test suite
-     holds against the JAX package;
-  3. main path: the committed 16-episode scene (100 NPCs, 2 walkers), the
-     full-width TransFuser++ (regnety_032 both branches, 1024x256 camera,
-     29,952-ray LiDAR half sweeps) with seeded random weights, bf16
-     forward; warm-up ticks, then timed ticks with every kernel's launch
-     count set to 0 just before and read just after;
-  4. kernels: each kernel against its plain PyTorch version on the card,
-     at the shapes the main path gave it (captured during a warm-up tick)
-     and on a random case with a ragged ray count, with times;
-  5. the output: every state and control leaf finite, ticks advanced.
+  1. card: print the card's name and power limit; build every CUDA kernel
+     of the port from its source, one nvcc per source, all started
+     together, and print ptxas's register and spill lines;
+  2. tick reference: three ticks of the sensor-on loop at a small size
+     (B=2, micro model, float32, TF32 off) on the card and on the CPU,
+     from the same weights and draws; the CPU run is the port's plain
+     path, which the test suite holds against the JAX package;
+  3. training reference: expert datagen (B=2, 3 recorded frames = 15
+     ticks) on the card and on the CPU from the same steer-noise draws,
+     every state and frame leaf; then one train step (B=2, micro model at
+     reduced sensor sizes, two micro-batches, float32, TF32 off) on the
+     card and on the CPU from the same weights, frames and draws: the
+     loss, every aux loss and every gradient;
+  4. the sensor-on tick (slice 1's main path): the committed 16-episode
+     scene (100 NPCs, 2 walkers), the full-width TransFuser++ (regnety_032
+     both branches, 1024x256 camera, 29,952-ray LiDAR half sweeps) with
+     seeded random weights, bf16 forward; warm-up ticks, then timed ticks
+     with every kernel's launch count set to 0 just before and read just
+     after; no host sync in a tick;
+  5. expert datagen (slice 2's main path, first half): the expert drives
+     the committed scene for 40 recorded frames (200 ticks); no host sync
+     in a tick, every frame leaf finite, usable frames;
+  6. training at full width (slice 2's main path, second half):
+     TransfuserConfig() with the full 59,904-ray sweep, bf16, 4
+     micro-batches of 16 episodes a step (an effective batch of 64),
+     AdamW with clip 1.0 and the multistep schedule, on those frames; a
+     warm-up step, then timed steps with the launch counts set to 0 just
+     before and read just after, split by CUDA events into render +
+     labels, forward + backward and optimizer, with the peak device
+     memory; no host sync in a step;
+  7. kernels: each kernel against its plain PyTorch version on the card,
+     at the shapes the main paths gave it (captured during warm-ups) and
+     on random ragged cases, with times and bounds;
+  8. the output: every tick-state leaf finite, ticks advanced.
 
 The last two lines of standard output are the ``kernels`` JSON and
-``{"ok": true, "device": ...}``. Without a card it exits non-zero and
-prints no result.
+``{"ok": true, "device": ...}``. A kernel's ``launches`` there is the sum
+over the main paths' timed runs, ``launches_by_path`` each path's count.
+Without a card it exits non-zero and prints no result.
 """
 
 import argparse
@@ -42,7 +63,10 @@ import torch
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12      # fp32 outside the tensor cores
 WARMUP = 3                        # ticks before the timed ones
-TICKS = 12                        # timed ticks of the main path
+TICKS = 12                        # timed ticks of the sensor-on tick
+DATAGEN_FRAMES = 40               # recorded frames, 5 ticks each
+MICRO_BATCHES = 4                 # frames_per_step: 4 x 16 = 64 samples
+TRAIN_STEPS = 3                   # timed full-width training steps
 
 
 def log(*a):
@@ -79,24 +103,71 @@ def time_ms(fn, reps=10, inner=10):
   return statistics.median(times)
 
 
-def check_kernel(name, inputs, kernel, plain):
+def host_syncs(fn):
+  """Run fn under torch's sync debug mode; the places that waited for the
+  device."""
+  with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter("always")
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+      fn()
+    finally:
+      torch.cuda.set_sync_debug_mode(0)
+  return [f"{w.filename}:{w.lineno}" for w in caught
+          if "called a synchronizing" in str(w.message)]
+
+
+def bound(n_bytes, n_flops):
+  """(bound ms, what bounds it) on the H100's data-sheet rates."""
+  by_bytes = 1e3 * n_bytes / H100_BYTES_PER_S
+  by_ops = 1e3 * n_flops / H100_FP32_FLOP_PER_S
+  return max(by_bytes, by_ops), ("operations" if by_ops >= by_bytes
+                                 else "bytes")
+
+
+def check_raycast(name, inputs):
   """Kernel vs plain version on the same card inputs. The kernel is built
   with -fmad=false and IEEE division and repeats the plain version's fp32
   operations in order, so they should agree bit for bit; the check allows
   1e-5 of t (an ulp of a 100 m hit) and no class mismatch."""
-  saved = kernel.launches
-  t, c = kernel(*inputs)
+  from carla_garage_tpu_torch.ops.raycast import (raycast_boxes,
+                                                  raycast_boxes_plain)
+  saved = raycast_boxes.launches
+  t, c = raycast_boxes(*inputs)
   torch.cuda.synchronize()
-  t_ref, c_ref = plain(*inputs)
+  t_ref, c_ref = raycast_boxes_plain(*inputs)
   err = float((t - t_ref).abs().max()) if t.numel() else 0.0
   mismatch = float((c != c_ref).float().mean()) if c.numel() else 0.0
-  ms = time_ms(lambda: kernel(*inputs))
-  plain_ms = time_ms(lambda: plain(*inputs), inner=2)
-  kernel.launches = saved            # comparison launches do not count
+  ms = time_ms(lambda: raycast_boxes(*inputs))
+  plain_ms = time_ms(lambda: raycast_boxes_plain(*inputs), inner=2)
+  raycast_boxes.launches = saved     # comparison launches do not count
   log(f"  {name}: rays {tuple(inputs[1].shape)} boxes "
       f"{tuple(inputs[2].shape)}  t max|err| {err:.3g}  cls mismatch "
       f"share {mismatch:.3g}  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms")
   assert err <= 1e-5 and mismatch == 0.0, (name, err, mismatch)
+  return err, ms, plain_ms
+
+
+def check_fill(name, boxes, h, w):
+  """The box-fill kernel vs its plain version on the same card inputs:
+  built with -fmad=false, it repeats the plain version's fp32 operations
+  in order, so the maps must be equal pixel for pixel."""
+  from carla_garage_tpu_torch.ops.bev_fill import (fill_boxes,
+                                                   fill_boxes_bev_plain)
+  saved = fill_boxes.launches
+  out = fill_boxes(boxes, h, w)
+  torch.cuda.synchronize()
+  ref = fill_boxes_bev_plain(boxes, h, w)
+  err = float((out.int() - ref.int()).abs().max()) if out.numel() else 0.0
+  n_diff = int((out != ref).sum())
+  ms = time_ms(lambda: fill_boxes(boxes, h, w))
+  plain_ms = time_ms(lambda: fill_boxes_bev_plain(boxes, h, w), inner=2)
+  fill_boxes.launches = saved        # comparison launches do not count
+  log(f"  {name}: boxes {tuple(boxes.shape)} grid {h}x{w}  pixels that "
+      f"differ {n_diff}  max|err| {err:.3g}  covered share "
+      f"{float((out > 0).float().mean()):.4f}  kernel {ms:.4f} ms  plain "
+      f"{plain_ms:.3f} ms")
+  assert n_diff == 0, (name, n_diff)
   return err, ms, plain_ms
 
 
@@ -120,11 +191,22 @@ def slice_batch(tree, n):
   return tree_map(lambda x: x[:n].contiguous(), tree)
 
 
-def small_reference_check(maps, lanes, scene, state):
+def reduced_sizes(cfg):
+  """The test suite's reduced sensor sizes: a micro model on a 128x128
+  BEV and a 32x128 camera."""
+  from carla_garage_tpu_torch.models.transfuser import micro_config
+  rcfg = cfg.replace(sensor=dataclasses.replace(
+      cfg.sensor, lidar_resolution_width=128, lidar_resolution_height=128))
+  tcfg = dataclasses.replace(micro_config(), img_h=32, img_w=128,
+                             lidar_h=128, lidar_w=128, img_anchors=(1, 4),
+                             lidar_anchors=(4, 4))
+  return rcfg, tcfg
+
+
+def small_reference_check(cfg, maps, lanes, scene, state):
   """Three ticks at B=2 with the micro model, on the card and on the CPU."""
   from carla_garage_tpu_torch.agents.sensor_agent import (
       make_transfuser_policy, sensor_agent_reset)
-  from carla_garage_tpu_torch.config import DEFAULT_CONFIG as cfg
   from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
                                                         micro_config)
   from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
@@ -163,54 +245,113 @@ def small_reference_check(maps, lanes, scene, state):
       f"{worst:.3g} (bar 1e-4 abs + 1e-4 rel), ints and bools equal")
 
 
-def main():
-  ap = argparse.ArgumentParser()
-  ap.add_argument("--profile", metavar="PATH",
-                  help="write torch.profiler's table of two ticks here")
-  args = ap.parse_args()
+def expert_reference(cfg, maps, lanes, scene, state, n_frames=3):
+  """Expert datagen at B=2 on the card and on the CPU from the same
+  steer-noise draws: n_frames recorded frames (5 ticks each), the final
+  state and every frame leaf. The CPU run is the port's path that the test
+  suite holds against the JAX package."""
+  from carla_garage_tpu_torch.sim.datagen import (SAVE_FREQ,
+                                                  collect_expert_frames)
 
-  if not torch.cuda.is_available():
-    log("chip_smoke: torch.cuda.is_available() is False; this script runs "
-        "only on an NVIDIA card")
-    return 1
+  B = 2
+  gen = torch.Generator().manual_seed(5)
+  draws = [{"steer_noise": torch.randn((B,), generator=gen)}
+           for _ in range(n_frames * SAVE_FREQ)]
+  runs = {}
+  for dev in ("cpu", "cuda"):
+    runs[dev] = collect_expert_frames(
+        cfg, maps.to(dev), lanes.to(dev), slice_batch(scene, B).to(dev),
+        slice_batch(state, B).to(dev), n_frames,
+        draws=[{k: v.to(dev) for k, v in d.items()} for d in draws])
+  torch.cuda.synchronize()
+  worst = leaves_close(runs["cuda"], runs["cpu"], "expert, card vs CPU")
+  log(f"  card vs CPU, expert datagen at B=2, {n_frames} frames "
+      f"({n_frames * SAVE_FREQ} ticks): max |diff| of float leaves "
+      f"{worst:.3g} (bar 1e-4 abs + 1e-4 rel), ints and bools equal")
 
+
+def small_train_reference(cfg, maps, lanes, scene, state):
+  """One train step at B=2 (micro model, reduced sensor sizes, two
+  micro-batches, float32) on the card and on the CPU. Frames: 10 recorded
+  frames of the expert on the CPU, copied to the card."""
+  from carla_garage_tpu_torch.models.transfuser import LidarCenterNet
+  from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
+  from carla_garage_tpu_torch.sensors.lidar import full_lidar_grid
+  from carla_garage_tpu_torch.sim.datagen import collect_expert_frames
+  from carla_garage_tpu_torch.train.transfuser_train import (
+      make_transfuser_train_step)
+
+  B = 2
+  rcfg, tcfg = reduced_sizes(cfg)
+  expert_reference(cfg, maps, lanes, scene, state)
+  cam = camera_ray_grid(rcfg, scale=8)
+  lid = full_lidar_grid(rcfg, decimate=16)
+  n_lidar = lid.shape[0] * lid.shape[1]
+  maps_c, lanes_c = maps.to("cpu"), lanes.to("cpu")
+  sc = slice_batch(scene, B).to("cpu")
+  _, frames = collect_expert_frames(
+      rcfg, maps_c, lanes_c, sc, slice_batch(state, B).to("cpu"), 10,
+      generator=torch.Generator().manual_seed(3))
+  torch.manual_seed(1)
+  model = LidarCenterNet(tcfg)
+  gen = torch.Generator().manual_seed(4)
+  f_idx = [0, 1]
+  draws = [{"lidar": torch.rand((B, n_lidar), generator=gen),
+            "speed_drop": torch.rand((B,), generator=gen) < 0.15}
+           for _ in f_idx]
+  runs = {}
+  for dev in ("cpu", "cuda"):
+    m = LidarCenterNet(tcfg).to(dev)
+    m.load_state_dict(model.state_dict())
+    opt = torch.optim.SGD(m.parameters(), lr=1.0)
+    step, _, _ = make_transfuser_train_step(
+        rcfg, tcfg, m, opt, maps_c.to(dev), sc.to(dev), frames.to(dev), cam,
+        lid)
+    aux = step(f_idx, draws=[{k: v.to(dev) for k, v in d.items()}
+                             for d in draws])
+    runs[dev] = ({k: v.cpu() for k, v in aux.items()},
+                 {n: p.grad.cpu() for n, p in m.named_parameters()})
+  (aux_g, g_g), (aux_c, g_c) = runs["cuda"], runs["cpu"]
+  assert set(aux_g) == set(aux_c) and len(aux_g) == 13, sorted(aux_g)
+  worst_aux = 0.0
+  for k in aux_c:
+    # the same float32 model on cuDNN and on the CPU's kernels
+    torch.testing.assert_close(aux_g[k], aux_c[k], rtol=2e-4, atol=1e-5,
+                               msg=k)
+    worst_aux = max(worst_aux, float((aux_g[k] - aux_c[k]).abs()))
+  # gradients: the bars of tests/test_torch_port_train.py (port vs JAX):
+  # 1e-3 of the global norm, 2e-2 of a tensor's largest entry; attention
+  # key biases have a zero gradient in exact arithmetic
+  gmax = max(float(g.abs().max()) for g in g_c.values())
+  norm = sum(float((g ** 2).sum()) for g in g_c.values()) ** 0.5
+  diff = sum(float(((g_g[n] - g_c[n]) ** 2).sum()) for n in g_c) ** 0.5
+  worst = 0.0
+  for n, g in g_c.items():
+    if n.endswith("key.bias"):
+      assert float(g_g[n].abs().max()) < 1e-5 * gmax, n
+      continue
+    err = float((g_g[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+    worst = max(worst, err)
+    assert err < 2e-2, (n, err)
+  assert diff < 1e-3 * norm, diff / norm
+  log(f"  card vs CPU, one train step at B=2: loss "
+      f"{float(aux_c['loss']):.6f} vs {float(aux_g['loss']):.6f}, aux max "
+      f"|diff| {worst_aux:.3g}; gradients {len(g_c)} tensors, error "
+      f"{diff / norm:.3g} of the norm, {worst:.3g} of a tensor at worst")
+
+
+def sensor_tick(cfg, maps, lanes, scene, state, kernels, args, card):
+  """The sensor-on tick at full width. Returns (final state, start state,
+  the raycast inputs of one warm-up tick, launches in the timed ticks)."""
   from carla_garage_tpu_torch.agents.sensor_agent import (
       make_transfuser_policy, sensor_agent_reset)
-  from carla_garage_tpu_torch.config import DEFAULT_CONFIG
   from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
                                                         TransfuserConfig)
-  from carla_garage_tpu_torch.ops import build
-  from carla_garage_tpu_torch.ops import raycast as ops_raycast
-  from carla_garage_tpu_torch.scene_io import load_scene
   from carla_garage_tpu_torch.sensors import raycast as sensors_raycast
   from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
   from carla_garage_tpu_torch.sensors.lidar import lidar_ray_grid
   from carla_garage_tpu_torch.sim.episode import rollout, sim_step
-  from carla_garage_tpu_torch.structs import tree_items
 
-  # float32 comparisons below run without TF32 (matmuls and cuDNN convs)
-  torch.backends.cuda.matmul.allow_tf32 = False
-  torch.backends.cudnn.allow_tf32 = False
-  card = card_line()
-  kind = torch.cuda.get_device_name(0)
-  log(f"phase 1: card {card}; torch {torch.__version__} cuda "
-      f"{torch.version.cuda}")
-  t0 = time.perf_counter()
-  for name in build.KERNELS:
-    text = build.build_kernel(name)
-    log(f"  built {name} in {time.perf_counter() - t0:.1f} s")
-    for line in text.splitlines():
-      if "registers" in line or "spill" in line:
-        log(f"  nvcc {name}: {line.strip()}")
-
-  cfg = DEFAULT_CONFIG.replace(sim=dataclasses.replace(
-      DEFAULT_CONFIG.sim, max_vehicles=100))
-  maps, lanes, scene, state = load_scene(device="cuda")
-
-  log("phase 2: small reference, card vs CPU")
-  small_reference_check(maps, lanes, scene, state)
-
-  log("phase 3: main path, full width")
   B = state.tick.shape[0]
   tcfg = TransfuserConfig()
   torch.manual_seed(0)
@@ -224,7 +365,7 @@ def main():
   state = state.replace(agent=sensor_agent_reset(cfg, B, n_lidar))
   gen = torch.Generator(device="cuda").manual_seed(0)
 
-  # warm-up tick 1 records the kernel's main-path inputs (camera, LiDAR)
+  # warm-up tick 1 records the kernel's inputs (camera, LiDAR)
   captured = []
   real = sensors_raycast.raycast_boxes
 
@@ -233,14 +374,15 @@ def main():
     return real(*xs)
 
   sensors_raycast.raycast_boxes = record
-  state = sim_step(cfg, maps, lanes, scene, state, policy, generator=gen)
-  sensors_raycast.raycast_boxes = real
+  try:
+    state = sim_step(cfg, maps, lanes, scene, state, policy, generator=gen)
+  finally:
+    sensors_raycast.raycast_boxes = real
   state = rollout(cfg, maps, lanes, scene, state, WARMUP - 1, policy,
                   generator=gen)
   torch.cuda.synchronize()
   start = state
 
-  kernels = {"raycast_boxes": ops_raycast.raycast_boxes}
   for k in kernels.values():
     k.launches = 0
   t0 = time.perf_counter()
@@ -249,22 +391,14 @@ def main():
   torch.cuda.synchronize()
   dt = time.perf_counter() - t0
   launches = {n: k.launches for n, k in kernels.items()}
-  ms_tick = 1e3 * dt / TICKS
-  log(f"  {TICKS} ticks at B={B}: {ms_tick:.2f} ms/tick, "
+  log(f"  {TICKS} ticks at B={B}: {1e3 * dt / TICKS:.2f} ms/tick, "
       f"{B * TICKS / dt:.1f} env-steps/s  ({card})")
   log(f"  launches in the timed ticks: {launches}")
-  assert launches["raycast_boxes"] == 2 * TICKS, launches
+  assert launches == {"raycast_boxes": 2 * TICKS, "fill_boxes_bev": 0}, \
+      launches
 
-  # host syncs inside one tick (torch's sync debug mode warns on each)
-  with warnings.catch_warnings(record=True) as caught:
-    warnings.simplefilter("always")
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-      sim_step(cfg, maps, lanes, scene, state, policy, generator=gen)
-    finally:
-      torch.cuda.set_sync_debug_mode(0)
-  syncs = [f"{w.filename}:{w.lineno}" for w in caught
-           if "called a synchronizing" in str(w.message)]
+  syncs = host_syncs(lambda: sim_step(cfg, maps, lanes, scene, state,
+                                      policy, generator=gen))
   log(f"  host syncs in one tick: {len(syncs)} {syncs}")
   assert not syncs, "a tick must not wait for the device"
 
@@ -274,72 +408,357 @@ def main():
                              ProfilerActivity.CUDA]) as prof:
       rollout(cfg, maps, lanes, scene, state, 2, policy, generator=gen)
       torch.cuda.synchronize()
-    events = prof.key_averages()
-    table = events.table(sort_by="self_cuda_time_total", row_limit=40)
-    on_card = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3 / 2
-    n_launch = sum(e.count for e in on_card) / 2
-    log(f"  profiled: device busy {busy_ms:.2f} ms a tick, {n_launch:.0f} "
-        f"kernels, memsets and copies a tick (over 2 ticks / 2)")
-    out = pathlib.Path(args.profile)
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(f"{card}\n{table}\n")
-    log("\n".join(table.splitlines()[:25]))
-
-  log("phase 4: kernels against their plain versions on the card")
+    write_profile(args.profile, card, "two sensor-on ticks", prof, 2, "w")
   assert len(captured) == 2, len(captured)
-  err_all, ms_sum, plain_sum, n_bytes, n_flops = 0.0, 0.0, 0.0, 0, 0
-  for label, inputs in zip(("camera", "lidar"), captured):
-    err, ms, plain_ms = check_kernel(f"raycast_boxes[{label}]", inputs,
-                                     ops_raycast.raycast_boxes,
-                                     ops_raycast.raycast_boxes_plain)
+  return state, start, captured, launches
+
+
+def write_profile(path, card, what, prof, n, mode):
+  events = prof.key_averages()
+  table = events.table(sort_by="self_cuda_time_total", row_limit=40)
+  on_card = [e for e in events
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+  busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3 / n
+  n_launch = sum(e.count for e in on_card) / n
+  log(f"  profiled {what}: device busy {busy_ms:.2f} ms each, "
+      f"{n_launch:.0f} kernels, memsets and copies each (over {n})")
+  out = pathlib.Path(path)
+  out.parent.mkdir(parents=True, exist_ok=True)
+  with out.open(mode) as f:
+    f.write(f"{card}\n{what}\n{table}\n")
+  log("\n".join(table.splitlines()[:25]))
+
+
+def datagen(cfg, maps, lanes, scene, state, card):
+  """Expert datagen on the card. Returns the recorded frames."""
+  from carla_garage_tpu_torch.sim.datagen import (SAVE_FREQ,
+                                                  collect_expert_frames,
+                                                  waypoint_labels)
+  from carla_garage_tpu_torch.sim.episode import sim_step
+  from carla_garage_tpu_torch.structs import tree_items
+
+  B = state.tick.shape[0]
+  gen = torch.Generator(device="cuda").manual_seed(1)
+  n_ticks = DATAGEN_FRAMES * SAVE_FREQ
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  final, frames = collect_expert_frames(cfg, maps, lanes, scene, state,
+                                        DATAGEN_FRAMES, generator=gen)
+  torch.cuda.synchronize()
+  dt = time.perf_counter() - t0
+  log(f"  {DATAGEN_FRAMES} frames ({n_ticks} ticks) at B={B}: "
+      f"{1e3 * dt / n_ticks:.2f} ms/tick, {B * n_ticks / dt:.1f} "
+      f"env-steps/s  ({card})")
+  syncs = host_syncs(lambda: sim_step(cfg, maps, lanes, scene, final,
+                                      generator=gen))
+  log(f"  host syncs in one expert tick: {len(syncs)} {syncs}")
+  assert not syncs, "a datagen tick must not wait for the device"
+  n_leaves = 0
+  for path, x in tree_items(frames):
+    assert x.shape[:2] == (DATAGEN_FRAMES, B), (path, x.shape)
+    if x.dtype.is_floating_point:
+      assert bool(torch.isfinite(x).all()), path
+    n_leaves += 1
+  _, wp_valid = waypoint_labels(frames)
+  usable = int(wp_valid.any(-1).sum())
+  log(f"  {n_leaves} frame leaves finite; usable frames {usable}/"
+      f"{DATAGEN_FRAMES}; brake share {float(frames.brake.mean()):.3f}; "
+      f"done {int(final.done.sum())}/{B}; ego speed max "
+      f"{float(frames.ego_speed.max()):.2f} m/s")
+  assert usable >= 1
+  return frames
+
+
+def train_full_width(cfg, maps, scene, frames, kernels, args, card):
+  """Full-width bf16 training on the recorded frames. Returns the kernels'
+  inputs captured in the warm-up step and the launches of the timed
+  steps."""
+  from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
+                                                        TransfuserConfig)
+  from carla_garage_tpu_torch.ops import bev_fill as ops_bev_fill
+  from carla_garage_tpu_torch.sensors import raycast as sensors_raycast
+  from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
+  from carla_garage_tpu_torch.sensors.lidar import full_lidar_grid
+  from carla_garage_tpu_torch.train import transfuser_train
+  from carla_garage_tpu_torch.train.transfuser_train import (
+      make_optimizer, make_transfuser_train_step)
+
+  B = frames.ego_yaw.shape[1]
+  K = MICRO_BATCHES
+  tcfg = TransfuserConfig()
+  torch.manual_seed(0)
+  model = LidarCenterNet(tcfg).cuda()
+  n_params = sum(p.numel() for p in model.parameters())
+  # the training script's recipe: clip_by_global_norm(1.0), then adamw
+  # with the multistep schedule over the steps run here
+  opt, sched = make_optimizer(model, lr=3e-4, steps=TRAIN_STEPS + 2,
+                              schedule="multistep")
+  lid = full_lidar_grid(cfg)
+  step, _, wp_valid = make_transfuser_train_step(
+      cfg, tcfg, model, opt, maps, scene, frames, camera_ray_grid(cfg), lid,
+      bf16=True, clip_norm=1.0, scheduler=sched)
+  usable = np.nonzero(wp_valid.cpu().numpy().any(-1))[0]
+  np_rng = np.random.default_rng(0)
+  gen = torch.Generator(device="cuda").manual_seed(2)
+  draw = lambda: np_rng.choice(usable, size=K).tolist()
+  log(f"  model {n_params / 1e6:.1f}M parameters; LiDAR "
+      f"{lid.shape[0] * lid.shape[1]} rays; {K} micro-batches of {B}")
+
+  # the warm-up step records the kernels' inputs of its first micro-batch
+  # (the box-fill kernel's input is the array that fill_boxes_bev packs)
+  captured = {"raycast": [], "fill": []}
+  real_rc, real_pack = sensors_raycast.raycast_boxes, ops_bev_fill.pack_boxes
+
+  def rec_rc(*xs):
+    captured["raycast"].append(tuple(x.clone() for x in xs))
+    return real_rc(*xs)
+
+  def rec_pack(*xs):
+    boxes = real_pack(*xs)
+    captured["fill"].append((boxes.clone(), cfg.sensor.lidar_resolution_height,
+                             cfg.sensor.lidar_resolution_width))
+    return boxes
+
+  sensors_raycast.raycast_boxes, ops_bev_fill.pack_boxes = rec_rc, rec_pack
+  try:
+    aux = step(draw(), generator=gen)
+  finally:
+    sensors_raycast.raycast_boxes = real_rc
+    ops_bev_fill.pack_boxes = real_pack
+  torch.cuda.synchronize()
+  assert len(captured["raycast"]) == 2 * K and len(captured["fill"]) == K
+  log(f"  warm-up step: loss {float(aux['loss']):.4f}")
+
+  # the timed steps' split: a CUDA event where a micro-batch's render +
+  # labels start and end (the forward + backward runs from there to the
+  # next render or to the clip), where the clip starts and where the
+  # optimizer step ends
+  events = []
+
+  def mark(name):
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    events.append((name, ev))
+
+  real_batch, real_clip = (transfuser_train.make_train_batch,
+                           torch.nn.utils.clip_grad_norm_)
+
+  def timed_batch(*a, **kw):
+    mark("render")
+    out = real_batch(*a, **kw)
+    mark("forward_backward")
+    return out
+
+  def timed_clip(*a, **kw):
+    mark("optimizer")
+    return real_clip(*a, **kw)
+
+  for k in kernels.values():
+    k.launches = 0
+  torch.cuda.reset_peak_memory_stats()
+  transfuser_train.make_train_batch = timed_batch
+  torch.nn.utils.clip_grad_norm_ = timed_clip
+  hook = opt.register_step_post_hook(lambda *_: mark("end"))
+  try:
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+      aux = step(draw(), generator=gen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+  finally:
+    transfuser_train.make_train_batch = real_batch
+    torch.nn.utils.clip_grad_norm_ = real_clip
+    hook.remove()
+  launches = {n: k.launches for n, k in kernels.items()}
+  assert [n for n, _ in events] == (["render", "forward_backward"] * K +
+                                    ["optimizer", "end"]) * TRAIN_STEPS
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  split = {}
+  for (name, a), (_, b) in zip(events, events[1:]):
+    if name != "end":
+      split[name] = split.get(name, 0.0) + a.elapsed_time(b) / TRAIN_STEPS
+  ms_step = 1e3 * dt / TRAIN_STEPS
+  log(f"  {TRAIN_STEPS} steps of {K} x {B}: {ms_step:.1f} ms/step, "
+      f"{K * B * TRAIN_STEPS / dt:.1f} samples/s  ({card})")
+  log(f"  split per step (CUDA events): render + labels "
+      f"{split['render']:.1f} ms, forward + backward "
+      f"{split['forward_backward']:.1f} ms, optimizer "
+      f"{split['optimizer']:.1f} ms; peak memory {peak_gb:.2f} GB")
+  log(f"  launches in the timed steps: {launches}")
+  assert launches == {"raycast_boxes": 2 * K * TRAIN_STEPS,
+                      "fill_boxes_bev": K * TRAIN_STEPS}, launches
+  bad = [k for k, v in aux.items() if not bool(torch.isfinite(v))]
+  assert not bad, bad
+  log("  aux of the last step: " + ", ".join(
+      f"{k[5:] if k.startswith('loss_') else k} {float(v):.4f}"
+      for k, v in aux.items()))
+  syncs = host_syncs(lambda: step(draw(), generator=gen))
+  log(f"  host syncs in one train step: {len(syncs)} {syncs}")
+  assert not syncs, "a train step must not wait for the device"
+
+  if args.profile:
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      step(draw(), generator=gen)
+      torch.cuda.synchronize()
+    write_profile(args.profile, card, "one full-width train step", prof, 1,
+                  "a")
+  return captured, launches
+
+
+def main():
+  ap = argparse.ArgumentParser()
+  ap.add_argument("--profile", metavar="PATH",
+                  help="write torch.profiler's tables of two ticks and one "
+                       "train step here")
+  args = ap.parse_args()
+
+  if not torch.cuda.is_available():
+    log("chip_smoke: torch.cuda.is_available() is False; this script runs "
+        "only on an NVIDIA card")
+    return 1
+
+  from carla_garage_tpu_torch.config import DEFAULT_CONFIG
+  from carla_garage_tpu_torch.ops import bev_fill as ops_bev_fill
+  from carla_garage_tpu_torch.ops import build
+  from carla_garage_tpu_torch.ops import raycast as ops_raycast
+  from carla_garage_tpu_torch.scene_io import load_scene
+  from carla_garage_tpu_torch.structs import tree_items
+
+  # float32 comparisons below run without TF32 (matmuls and cuDNN convs)
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  card = card_line()
+  kind = torch.cuda.get_device_name(0)
+  log(f"phase 1: card {card}; torch {torch.__version__} cuda "
+      f"{torch.version.cuda}")
+  t0 = time.perf_counter()
+  texts = build.build_all()
+  log(f"  built {sorted(texts)} in {time.perf_counter() - t0:.1f} s "
+      f"(one nvcc per source, in parallel)")
+  for name, text in texts.items():
+    for line in text.splitlines():
+      if "registers" in line or "spill" in line:
+        log(f"  nvcc {name}: {line.strip()}")
+
+  cfg = DEFAULT_CONFIG.replace(sim=dataclasses.replace(
+      DEFAULT_CONFIG.sim, max_vehicles=100))
+  maps, lanes, scene, state0 = load_scene(device="cuda")
+  kernels = {"raycast_boxes": ops_raycast.raycast_boxes,
+             "fill_boxes_bev": ops_bev_fill.fill_boxes}
+
+  log("phase 2: tick reference, card vs CPU")
+  small_reference_check(cfg, maps, lanes, scene, state0)
+  log("phase 3: training reference, card vs CPU")
+  small_train_reference(cfg, maps, lanes, scene, state0)
+
+  log("phase 4: sensor-on tick, full width")
+  state, start, tick_inputs, tick_launches = sensor_tick(
+      cfg, maps, lanes, scene, state0, kernels, args, card)
+
+  log("phase 5: expert datagen on the card")
+  frames = datagen(cfg, maps, lanes, scene, state0, card)
+
+  log("phase 6: training at full width")
+  train_inputs, train_launches = train_full_width(
+      cfg, maps, scene, frames, kernels, args, card)
+
+  log("phase 7: kernels against their plain versions on the card")
+  rc_err, rc_ms, rc_plain, n_bytes, n_flops = 0.0, 0.0, 0.0, 0, 0
+  for label, inputs in zip(("camera", "lidar half sweep"), tick_inputs):
+    err, ms, plain_ms = check_raycast(f"raycast_boxes[tick {label}]",
+                                      inputs)
     by, fl = ops_raycast.raycast_boxes_cost(inputs[1].shape[1], inputs[2])
-    err_all, ms_sum, plain_sum = max(err_all, err), ms_sum + ms, \
-        plain_sum + plain_ms
+    rc_err, rc_ms, rc_plain = max(rc_err, err), rc_ms + ms, \
+        rc_plain + plain_ms
     n_bytes, n_flops = n_bytes + by, n_flops + fl
+  rc_bound, rc_by = bound(n_bytes, n_flops)
+  log(f"  one tick's two launches: {rc_ms:.4f} ms; bound {rc_bound:.4f} ms "
+      f"by {rc_by} ({n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP); "
+      f"plain {rc_plain:.3f} ms")
+  tr_lidar = train_inputs["raycast"][1]
+  err, ms, plain_ms = check_raycast("raycast_boxes[training full sweep]",
+                                    tr_lidar)
+  rc_err = max(rc_err, err)
+  lb, lby = bound(*ops_raycast.raycast_boxes_cost(tr_lidar[1].shape[1],
+                                                  tr_lidar[2]))
+  log(f"  training LiDAR launch: {ms:.4f} ms; bound {lb:.4f} ms by {lby}; "
+      f"plain {plain_ms:.3f} ms")
   rng = np.random.default_rng(0)
   o = torch.tensor(rng.uniform(-5, 5, (3, 3)), dtype=torch.float32)
   d = torch.nn.functional.normalize(torch.tensor(
       rng.normal(size=(3, 10007, 3)), dtype=torch.float32), dim=-1)
-  bx = captured[0][2][:3].cpu().clone()
+  bx = tick_inputs[0][2][:3].cpu().clone()
   bx[..., :2] = o[:, None, :2] + torch.tensor(
       rng.uniform(-30, 30, (3, bx.shape[1], 2)), dtype=torch.float32)
-  err, _, _ = check_kernel("raycast_boxes[random, ragged N]",
-                           tuple(x.cuda() for x in (o, d, bx)),
-                           ops_raycast.raycast_boxes,
-                           ops_raycast.raycast_boxes_plain)
-  err_all = max(err_all, err)
-  bound_bytes_ms = 1e3 * n_bytes / H100_BYTES_PER_S
-  bound_ops_ms = 1e3 * n_flops / H100_FP32_FLOP_PER_S
-  bound_ms = max(bound_bytes_ms, bound_ops_ms)
-  log(f"  one tick's two launches: {ms_sum:.4f} ms; bound {bound_ms:.4f} ms "
-      f"({n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP)")
+  err, _, _ = check_raycast("raycast_boxes[random, ragged N]",
+                            tuple(x.cuda() for x in (o, d, bx)))
+  rc_err = max(rc_err, err)
 
-  log("phase 5: output")
+  boxes, h, w = train_inputs["fill"][0]
+  fill_err, fill_ms, fill_plain = check_fill(
+      "fill_boxes_bev[training]", boxes, h, w)
+  f_bytes, f_flops, f_tests = ops_bev_fill.fill_boxes_bev_cost(boxes, h, w)
+  fill_bound, fill_by = bound(f_bytes, f_flops)
+  n_valid = int((boxes[..., 7] > 0).sum())
+  log(f"  training launch: {fill_ms:.4f} ms; bound {fill_bound:.6f} ms by "
+      f"{fill_by} ({f_bytes / 1e6:.2f} MB; {f_tests} pixel-box tests in the "
+      f"footprints of {n_valid} valid boxes, {f_flops / 1e6:.3f} MFLOP); "
+      f"plain {fill_plain:.3f} ms")
+  V = 37
+  cx = rng.uniform(-10, 338, (3, V))
+  cy = rng.uniform(-10, 210, (3, V))
+  cx[:, 1::4], cy[:, 1::4] = cx[:, 0:4 * 9:4], cy[:, 0:4 * 9:4]
+  yaw = torch.tensor(rng.uniform(-np.pi, np.pi, (3, V)), dtype=torch.float32)
+  f32 = lambda a: torch.tensor(a, dtype=torch.float32)
+  ragged = ops_bev_fill.pack_boxes(
+      f32(cx), f32(cy), torch.cos(yaw), torch.sin(yaw),
+      f32(rng.uniform(2, 14, (3, V))), f32(rng.uniform(1, 7, (3, V))),
+      torch.tensor(rng.integers(1, 11, (3, V))),
+      torch.tensor(rng.uniform(size=(3, V)) > 0.25)).cuda()
+  err, _, _ = check_fill("fill_boxes_bev[random, ragged 200x328, V=37]",
+                         ragged, 200, 328)
+  fill_err = max(fill_err, err)
+
+  log("phase 8: output")
   n_leaves = 0
   for path, x in tree_items(state):
     if x.dtype.is_floating_point:
       assert bool(torch.isfinite(x).all()), path
     n_leaves += 1
   ctl = state.agent.prev_control
-  assert ctl.shape == (B, 3) and bool(torch.isfinite(ctl).all())
+  assert ctl.shape == (state.tick.shape[0], 3)
+  assert bool(torch.isfinite(ctl).all())
   advanced = (state.tick > start.tick) | start.done
   assert bool(advanced.all()), (start.tick, state.tick)
-  log(f"  {n_leaves} state leaves finite; ticks {state.tick.tolist()}; "
-      f"done {int(state.done.sum())}/{B}; route completion max "
+  log(f"  {n_leaves} tick-state leaves finite; ticks {state.tick.tolist()}; "
+      f"route completion max "
       f"{float(state.criteria.route_completion.max()):.4f}")
+  log(f"  launches: raycast_boxes {tick_launches['raycast_boxes']} in "
+      f"{TICKS} ticks + {train_launches['raycast_boxes']} in {TRAIN_STEPS} "
+      f"train steps; fill_boxes_bev {train_launches['fill_boxes_bev']} in "
+      f"{TRAIN_STEPS} train steps")
 
   log(card)
-  log(json.dumps({"kernels": [{
-      "name": "raycast_boxes", "route": "cuda",
-      "source": "carla_garage_tpu_torch/csrc/raycast_boxes.cu",
-      "replaces": "carla_garage_tpu/ops/pallas/raycast.py:85",
-      "launches": launches["raycast_boxes"], "max_abs_err": err_all,
-      "ms": ms_sum, "plain_ms": plain_sum, "bound_ms": bound_ms,
-      "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms
-      else "bytes",
-      "library_ms": None}]}))
+  log(json.dumps({"kernels": [
+      {"name": "raycast_boxes", "route": "cuda",
+       "source": "carla_garage_tpu_torch/csrc/raycast_boxes.cu",
+       "replaces": "carla_garage_tpu/ops/pallas/raycast.py:85",
+       "launches": tick_launches["raycast_boxes"] +
+       train_launches["raycast_boxes"],
+       "launches_by_path": {"tick": tick_launches["raycast_boxes"],
+                            "train_step": train_launches["raycast_boxes"]},
+       "max_abs_err": rc_err, "ms": rc_ms, "plain_ms": rc_plain,
+       "bound_ms": rc_bound, "bound_by": rc_by, "library_ms": None},
+      {"name": "fill_boxes_bev", "route": "cuda",
+       "source": "carla_garage_tpu_torch/csrc/fill_boxes_bev.cu",
+       "replaces": "carla_garage_tpu/ops/pallas/bev_fill.py:53",
+       "launches": train_launches["fill_boxes_bev"],
+       "launches_by_path": {"tick": tick_launches["fill_boxes_bev"],
+                            "train_step": train_launches["fill_boxes_bev"]},
+       "max_abs_err": fill_err, "ms": fill_ms, "plain_ms": fill_plain,
+       "bound_ms": fill_bound, "bound_by": fill_by, "library_ms": None}]}))
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
   return 0

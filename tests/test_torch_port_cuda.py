@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from carla_garage_tpu_torch.ops.bev_fill import (fill_boxes,
+                                                 fill_boxes_bev_plain,
+                                                 pack_boxes)
 from carla_garage_tpu_torch.ops.raycast import (raycast_boxes,
                                                 raycast_boxes_plain)
 
@@ -80,3 +83,50 @@ def test_raycast_kernel_rejects_bad_input(cuda):
     raycast_boxes(o, d.transpose(0, 1), bx)
   with pytest.raises(ValueError):
     raycast_boxes(o, d, bx[..., :8].contiguous())
+
+
+def random_bev_boxes(B, V, h, w, seed):
+  """Boxes over an h x w grid: random poses, a quarter invalid, and pairs
+  of boxes of other classes at one center (the later one must win)."""
+  rng = np.random.default_rng(seed)
+  cx = rng.uniform(-10, w + 10, (B, V))
+  cy = rng.uniform(-10, h + 10, (B, V))
+  k = cx[:, 1::4].shape[1]              # boxes 4i+1 sit on boxes 4i
+  cx[:, 1::4], cy[:, 1::4] = cx[:, 0:4 * k:4], cy[:, 0:4 * k:4]
+  yaw = rng.uniform(-np.pi, np.pi, (B, V))
+  f = lambda a: torch.tensor(a, dtype=torch.float32)
+  return pack_boxes(f(cx), f(cy), torch.cos(f(yaw)), torch.sin(f(yaw)),
+                    f(rng.uniform(2, 14, (B, V))), f(rng.uniform(1, 7, (B, V))),
+                    torch.tensor(rng.integers(1, 11, (B, V))),
+                    torch.tensor(rng.uniform(size=(B, V)) > 0.25))
+
+
+@pytest.mark.parametrize("B,V,h,w", [(16, 172, 256, 256), (3, 37, 200, 328),
+                                     (2, 0, 64, 64), (1, 1500, 130, 7)])
+def test_fill_kernel_matches_plain(cuda, B, V, h, w):
+  """The training shape (16 episodes, 172 boxes, 256x256), a ragged grid,
+  no boxes, and more boxes than 48 KB of shared memory hold."""
+  bx = random_bev_boxes(B, V, h, w, seed=V).to(cuda)
+  before = fill_boxes.launches
+  out = fill_boxes(bx, h, w)
+  torch.cuda.synchronize()
+  assert fill_boxes.launches == before + 1
+  ref = fill_boxes_bev_plain(bx, h, w)
+  # built with -fmad=false, the kernel repeats the plain version's fp32
+  # operations in order: the maps are equal pixel for pixel
+  assert out.dtype == torch.uint8 and out.shape == (B, h, w)
+  assert torch.equal(out, ref)
+  if V:
+    assert bool((out > 0).any())
+
+
+def test_fill_kernel_rejects_bad_input(cuda):
+  bx = random_bev_boxes(2, 4, 8, 8, seed=0).to(cuda)
+  with pytest.raises(TypeError):
+    fill_boxes(bx.double(), 8, 8)
+  with pytest.raises(ValueError):
+    fill_boxes(bx[..., :7].contiguous(), 8, 8)
+  with pytest.raises(ValueError):
+    fill_boxes(bx.transpose(0, 1).contiguous().transpose(0, 1), 8, 8)
+  with pytest.raises(ValueError):
+    fill_boxes(bx, 0, 8)

@@ -125,11 +125,12 @@ def bound(n_bytes, n_flops):
                                  else "bytes")
 
 
-def check_raycast(name, inputs):
+def check_raycast(name, inputs, timed=True):
   """Kernel vs plain version on the same card inputs. The kernel is built
   with -fmad=false and IEEE division and repeats the plain version's fp32
-  operations in order, so they should agree bit for bit; the check allows
-  1e-5 of t (an ulp of a 100 m hit) and no class mismatch."""
+  operations in order for every pair its cull lets through, so they must
+  agree bit for bit: equal t and equal classes. Untimed checks return
+  times of 0."""
   from carla_garage_tpu_torch.ops.raycast import (raycast_boxes,
                                                   raycast_boxes_plain)
   saved = raycast_boxes.launches
@@ -138,20 +139,43 @@ def check_raycast(name, inputs):
   t_ref, c_ref = raycast_boxes_plain(*inputs)
   err = float((t - t_ref).abs().max()) if t.numel() else 0.0
   mismatch = float((c != c_ref).float().mean()) if c.numel() else 0.0
-  ms = time_ms(lambda: raycast_boxes(*inputs))
-  plain_ms = time_ms(lambda: raycast_boxes_plain(*inputs), inner=2)
+  same = torch.equal(t, t_ref) and torch.equal(c, c_ref)
+  ms = time_ms(lambda: raycast_boxes(*inputs)) if timed else 0.0
+  plain_ms = time_ms(lambda: raycast_boxes_plain(*inputs), inner=2) \
+      if timed else 0.0
   raycast_boxes.launches = saved     # comparison launches do not count
   log(f"  {name}: rays {tuple(inputs[1].shape)} boxes "
-      f"{tuple(inputs[2].shape)}  t max|err| {err:.3g}  cls mismatch "
-      f"share {mismatch:.3g}  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms")
-  assert err <= 1e-5 and mismatch == 0.0, (name, err, mismatch)
+      f"{tuple(inputs[2].shape)}  bit-equal {same}  t max|err| {err:.3g}  "
+      f"cls mismatch share {mismatch:.3g}" +
+      (f"  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms" if timed else ""))
+  assert same, (name, err, mismatch)
   return err, ms, plain_ms
 
 
-def check_fill(name, boxes, h, w):
+def raycast_pairs(name, inputs):
+  """Print the (ray, box) pairs of these inputs: valid, let through by the
+  cull's mirror, in a footprint (what the bound charges), and hit by the
+  exact test. Returns (bytes, flops) of the recounted bound."""
+  from carla_garage_tpu_torch.ops.raycast import (raycast_boxes_cost,
+                                                  raycast_candidates_plain,
+                                                  raycast_hits_plain)
+  n_bytes, n_flops, valid, foot = raycast_boxes_cost(*inputs)
+  cand = int(raycast_candidates_plain(*inputs).sum())
+  hits = int(raycast_hits_plain(*inputs).sum())
+  assert hits <= cand and hits <= foot <= valid, (hits, cand, foot, valid)
+  log(f"  {name} pairs: valid {valid}, cull candidates {cand} "
+      f"({cand / max(valid, 1):.4f}), footprint {foot}, hits {hits}; bound "
+      f"terms: bytes {bound(n_bytes, 0)[0]:.6f} ms ({n_bytes / 1e6:.1f} MB), "
+      f"operations {bound(0, n_flops)[0]:.6f} ms ({n_flops / 1e9:.3f} "
+      f"GFLOP)")
+  return n_bytes, n_flops
+
+
+def check_fill(name, boxes, h, w, timed=True):
   """The box-fill kernel vs its plain version on the same card inputs:
   built with -fmad=false, it repeats the plain version's fp32 operations
-  in order, so the maps must be equal pixel for pixel."""
+  in order for every box its tile cull keeps, so the maps must be equal
+  pixel for pixel. Untimed checks return times of 0."""
   from carla_garage_tpu_torch.ops.bev_fill import (fill_boxes,
                                                    fill_boxes_bev_plain)
   saved = fill_boxes.launches
@@ -160,15 +184,44 @@ def check_fill(name, boxes, h, w):
   ref = fill_boxes_bev_plain(boxes, h, w)
   err = float((out.int() - ref.int()).abs().max()) if out.numel() else 0.0
   n_diff = int((out != ref).sum())
-  ms = time_ms(lambda: fill_boxes(boxes, h, w))
-  plain_ms = time_ms(lambda: fill_boxes_bev_plain(boxes, h, w), inner=2)
+  ms = time_ms(lambda: fill_boxes(boxes, h, w)) if timed else 0.0
+  plain_ms = time_ms(lambda: fill_boxes_bev_plain(boxes, h, w), inner=2) \
+      if timed else 0.0
   fill_boxes.launches = saved        # comparison launches do not count
   log(f"  {name}: boxes {tuple(boxes.shape)} grid {h}x{w}  pixels that "
       f"differ {n_diff}  max|err| {err:.3g}  covered share "
-      f"{float((out > 0).float().mean()):.4f}  kernel {ms:.4f} ms  plain "
-      f"{plain_ms:.3f} ms")
+      f"{float((out > 0).float().mean()):.4f}" +
+      (f"  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms" if timed else ""))
   assert n_diff == 0, (name, n_diff)
   return err, ms, plain_ms
+
+
+def sass_loops(lib):
+  """The loops of a kernel library's SASS (cuobjdump -sass), each as
+  "start-end: n instructions" between a backward branch's target and the
+  branch; "cuobjdump not found" where the toolkit lacks it."""
+  import re
+  import shutil
+  tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+  if not pathlib.Path(tool).exists():
+    return "cuobjdump not found"
+  text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                        text=True, timeout=120).stdout
+  addrs, loops = [], []
+  for line in text.splitlines():
+    if "Function :" in line:
+      addrs = []
+    m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+    if not m:
+      continue
+    addr = int(m.group(1), 16)
+    addrs.append(addr)
+    br = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", m.group(2))
+    if br and int(br.group(1), 16) < addr:
+      start = int(br.group(1), 16)
+      n = sum(1 for a in addrs if start <= a <= addr)
+      loops.append(f"{start:#x}-{addr:#x}: {n}")
+  return ", ".join(loops) or "none"
 
 
 def leaves_close(a, b, what):
@@ -621,7 +674,7 @@ def main():
 
   from carla_garage_tpu_torch.config import DEFAULT_CONFIG
   from carla_garage_tpu_torch.ops import bev_fill as ops_bev_fill
-  from carla_garage_tpu_torch.ops import build
+  from carla_garage_tpu_torch.ops import build, kernel_cases
   from carla_garage_tpu_torch.ops import raycast as ops_raycast
   from carla_garage_tpu_torch.scene_io import load_scene
   from carla_garage_tpu_torch.structs import tree_items
@@ -665,24 +718,25 @@ def main():
       cfg, maps, scene, frames, kernels, args, card)
 
   log("phase 7: kernels against their plain versions on the card")
+  for name in build.KERNELS:
+    log(f"  {name} SASS loops: {sass_loops(build.library_path(name))}")
   rc_err, rc_ms, rc_plain, n_bytes, n_flops = 0.0, 0.0, 0.0, 0, 0
   for label, inputs in zip(("camera", "lidar half sweep"), tick_inputs):
     err, ms, plain_ms = check_raycast(f"raycast_boxes[tick {label}]",
                                       inputs)
-    by, fl = ops_raycast.raycast_boxes_cost(inputs[1].shape[1], inputs[2])
+    by, fl = raycast_pairs(f"tick {label}", inputs)
     rc_err, rc_ms, rc_plain = max(rc_err, err), rc_ms + ms, \
         rc_plain + plain_ms
     n_bytes, n_flops = n_bytes + by, n_flops + fl
   rc_bound, rc_by = bound(n_bytes, n_flops)
   log(f"  one tick's two launches: {rc_ms:.4f} ms; bound {rc_bound:.4f} ms "
-      f"by {rc_by} ({n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP); "
+      f"by {rc_by} ({n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.3f} GFLOP); "
       f"plain {rc_plain:.3f} ms")
   tr_lidar = train_inputs["raycast"][1]
   err, ms, plain_ms = check_raycast("raycast_boxes[training full sweep]",
                                     tr_lidar)
   rc_err = max(rc_err, err)
-  lb, lby = bound(*ops_raycast.raycast_boxes_cost(tr_lidar[1].shape[1],
-                                                  tr_lidar[2]))
+  lb, lby = bound(*raycast_pairs("training full sweep", tr_lidar))
   log(f"  training LiDAR launch: {ms:.4f} ms; bound {lb:.4f} ms by {lby}; "
       f"plain {plain_ms:.3f} ms")
   rng = np.random.default_rng(0)
@@ -695,6 +749,10 @@ def main():
   err, _, _ = check_raycast("raycast_boxes[random, ragged N]",
                             tuple(x.cuda() for x in (o, d, bx)))
   rc_err = max(rc_err, err)
+  for name, inputs in kernel_cases.raycast_cases().items():
+    err, _, _ = check_raycast(f"raycast_boxes[{name}]",
+                              tuple(x.cuda() for x in inputs), timed=False)
+    rc_err = max(rc_err, err)
 
   boxes, h, w = train_inputs["fill"][0]
   fill_err, fill_ms, fill_plain = check_fill(
@@ -702,10 +760,15 @@ def main():
   f_bytes, f_flops, f_tests = ops_bev_fill.fill_boxes_bev_cost(boxes, h, w)
   fill_bound, fill_by = bound(f_bytes, f_flops)
   n_valid = int((boxes[..., 7] > 0).sum())
+  kept = ops_bev_fill.fill_tile_candidates_plain(boxes, h, w)
   log(f"  training launch: {fill_ms:.4f} ms; bound {fill_bound:.6f} ms by "
       f"{fill_by} ({f_bytes / 1e6:.2f} MB; {f_tests} pixel-box tests in the "
       f"footprints of {n_valid} valid boxes, {f_flops / 1e6:.3f} MFLOP); "
-      f"plain {fill_plain:.3f} ms")
+      f"plain {fill_plain:.3f} ms; box-tile pairs kept by the cull "
+      f"{int(kept.sum())} of {n_valid * kept.shape[2] * kept.shape[3]} "
+      f"(valid boxes x {kept.shape[2] * kept.shape[3]} tiles), tiles that "
+      f"keep none {int((~kept.any(1)).sum())} of "
+      f"{kept.shape[0] * kept.shape[2] * kept.shape[3]}")
   V = 37
   cx = rng.uniform(-10, 338, (3, V))
   cy = rng.uniform(-10, 210, (3, V))
@@ -720,6 +783,10 @@ def main():
   err, _, _ = check_fill("fill_boxes_bev[random, ragged 200x328, V=37]",
                          ragged, 200, 328)
   fill_err = max(fill_err, err)
+  for name, (bx, h, w) in kernel_cases.fill_cases().items():
+    err, _, _ = check_fill(f"fill_boxes_bev[{name}]", bx.cuda(), h, w,
+                           timed=False)
+    fill_err = max(fill_err, err)
 
   log("phase 8: output")
   n_leaves = 0

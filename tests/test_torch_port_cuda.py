@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from carla_garage_tpu_torch.ops import kernel_cases
 from carla_garage_tpu_torch.ops.bev_fill import (fill_boxes,
                                                  fill_boxes_bev_plain,
                                                  pack_boxes)
@@ -59,9 +60,29 @@ def random_box_case(B, N, K, seed):
   return f(origins), f(d), f(boxes)
 
 
-@pytest.mark.parametrize("B,N,K", [(3, 1000, 13), (2, 257, 48), (1, 5, 0)])
+RAY_CASES = kernel_cases.raycast_cases()
+FILL_CASES = kernel_cases.fill_cases()
+
+
+@pytest.mark.parametrize("B,N,K", [(3, 1000, 13), (2, 257, 48), (1, 5, 0),
+                                   (16, 59904, 48), (2, 3000, 1000)])
 def test_raycast_kernel_matches_plain(cuda, B, N, K):
+  """Random cases, the training sweep's shape (16 x 59,904 rays, 48 box
+  slots), and 1,000 boxes: 64 KB of staged records, past the 48 KB that
+  needs no opt-in."""
   o, d, bx = (x.to(cuda) for x in random_box_case(B, N, K, seed=N))
+  _raycast_equals_plain(o, d, bx)
+
+
+@pytest.mark.parametrize("name", list(RAY_CASES))
+def test_raycast_kernel_matches_plain_adversarial(cuda, name):
+  """The cull's adversarial cases: grazing corners, edges, axis-parallel
+  and vertical rays, origins inside boxes, boxes 1,000 m away, zero
+  extents, rising rays against poles."""
+  _raycast_equals_plain(*(x.to(cuda) for x in RAY_CASES[name]))
+
+
+def _raycast_equals_plain(o, d, bx):
   before = raycast_boxes.launches
   t, cls = raycast_boxes(o, d, bx)
   torch.cuda.synchronize()
@@ -71,7 +92,7 @@ def test_raycast_kernel_matches_plain(cuda, B, N, K):
   # version's fp32 operations in its order: equal bit for bit
   assert torch.equal(t, t_ref)
   assert torch.equal(cls, cls_ref)
-  if K:
+  if bx.shape[1]:
     assert bool((t < 1e9).any())
 
 
@@ -102,11 +123,29 @@ def random_bev_boxes(B, V, h, w, seed):
 
 
 @pytest.mark.parametrize("B,V,h,w", [(16, 172, 256, 256), (3, 37, 200, 328),
-                                     (2, 0, 64, 64), (1, 1500, 130, 7)])
+                                     (2, 0, 64, 64), (1, 2000, 130, 7)])
 def test_fill_kernel_matches_plain(cuda, B, V, h, w):
   """The training shape (16 episodes, 172 boxes, 256x256), a ragged grid,
-  no boxes, and more boxes than 48 KB of shared memory hold."""
+  no boxes, and 2,000 boxes: 64 KB of staged survivors where a tile keeps
+  them all, past the 48 KB that needs no opt-in."""
   bx = random_bev_boxes(B, V, h, w, seed=V).to(cuda)
+  out = _fill_equals_plain(bx, h, w)
+  if V:
+    assert bool((out > 0).any())
+
+
+@pytest.mark.parametrize("name", list(FILL_CASES))
+def test_fill_kernel_matches_plain_adversarial(cuda, name):
+  """Boxes on tile corners, narrower than a pixel, at 45 degrees, partly
+  off a ragged grid (width not a multiple of 4), and a grid where no tile
+  keeps a box."""
+  boxes, h, w = FILL_CASES[name]
+  out = _fill_equals_plain(boxes.to(cuda), h, w)
+  assert bool((out > 0).any()) == (name != "no survivor")
+
+
+def _fill_equals_plain(bx, h, w):
+  B = bx.shape[0]
   before = fill_boxes.launches
   out = fill_boxes(bx, h, w)
   torch.cuda.synchronize()
@@ -116,8 +155,7 @@ def test_fill_kernel_matches_plain(cuda, B, V, h, w):
   # operations in order: the maps are equal pixel for pixel
   assert out.dtype == torch.uint8 and out.shape == (B, h, w)
   assert torch.equal(out, ref)
-  if V:
-    assert bool((out > 0).any())
+  return out
 
 
 def test_fill_kernel_rejects_bad_input(cuda):

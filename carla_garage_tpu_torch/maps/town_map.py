@@ -12,9 +12,10 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-from carla_garage_tpu_torch.device import to_int32
+from carla_garage_tpu_torch.device import resolve_device, to_int32
 from carla_garage_tpu_torch.structs import Struct
 
 
@@ -102,6 +103,24 @@ class MapStack(Struct):
                         flat).to(torch.int32)
 
 
+def stack_towns(rasters: list, offsets: list, ppm: float,
+                device="cuda") -> MapStack:
+  """Pad per-town [C,H,W] uint8 rasters to a common size and stack them to
+  [T,C,H,W] on `device`."""
+  max_h = max(r.shape[1] for r in rasters)
+  max_w = max(r.shape[2] for r in rasters)
+  padded = np.zeros((len(rasters), rasters[0].shape[0], max_h, max_w),
+                    np.uint8)
+  for i, r in enumerate(rasters):
+    padded[i, :, :r.shape[1], :r.shape[2]] = r
+  dev = resolve_device(device)
+  return MapStack(
+      layers=torch.from_numpy(padded).to(dev),
+      ppm=torch.tensor(np.float32(ppm), device=dev),
+      world_offset=torch.from_numpy(
+          np.stack(offsets).astype(np.float32)).to(dev))
+
+
 @dataclasses.dataclass
 class LaneGraph(Struct):
   """NPC routing lanes as fixed-shape polylines: points [N,P,2],
@@ -112,6 +131,35 @@ class LaneGraph(Struct):
   successor: torch.Tensor
   seg_len: torch.Tensor
   total_len: torch.Tensor
+
+  @staticmethod
+  def from_polylines(polys: list, successors: list,
+                     max_points: int | None = None, max_succ: int = 4,
+                     device="cuda") -> "LaneGraph":
+    """Pad host polylines [P_i,2] and successor lists into a LaneGraph on
+    `device` (points past a polyline's end repeat its last point)."""
+    n = len(polys)
+    if max_points is None:   # fit the longest polyline (rounded up)
+      longest = max(len(p) for p in polys) if polys else 2
+      max_points = max(-(-longest // 64) * 64, 64)
+    pts = np.zeros((n, max_points, 2), np.float32)
+    nv = np.zeros((n,), np.int32)
+    suc = -np.ones((n, max_succ), np.int32)
+    seg = np.zeros((n, max_points), np.float32)
+    tot = np.zeros((n,), np.float32)
+    for i, poly in enumerate(polys):
+      poly = np.asarray(poly, np.float32)[:max_points]
+      pts[i, :len(poly)] = poly
+      pts[i, len(poly):] = poly[-1]
+      nv[i] = len(poly)
+      seg[i, 1:len(poly)] = np.linalg.norm(np.diff(poly, axis=0), axis=-1)
+      tot[i] = seg[i].sum()
+      for j, s in enumerate(successors[i][:max_succ]):
+        suc[i, j] = s
+    dev = resolve_device(device)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return LaneGraph(points=t(pts), num_valid=t(nv), successor=t(suc),
+                     seg_len=t(seg), total_len=t(tot))
 
   def position_at(self, lane_id: torch.Tensor, t: torch.Tensor):
     """Interpolated (pos [..,2], yaw [..]) at arc-length t on lane lane_id."""

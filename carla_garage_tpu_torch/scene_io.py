@@ -2,10 +2,12 @@
 
 A file holds the four inputs of a rollout, ``(maps, lanes, scene, state)``,
 flattened to arrays under '/'-joined field paths (``state/ego/pos``, ...).
-The port has no scene builder yet, so its full-size runs start from a
-committed file, ``data/synth_b16_v100_seed0.npz``: 16 episodes of the
-JAX package's synthetic town with 100 vehicle slots, 100 NPCs and 2
-walkers each (seed 0).
+A scene's scenario specs and the state's scenario triggers travel with it
+when the scene has them (``scene/scenarios/...``, ``state/scenario/...``).
+``data/synth_b16_v100_seed0.npz`` is a committed file of 16 episodes of
+the synthetic town with 100 vehicle slots, 100 NPCs and 2 walkers each
+(seed 0, no scenarios), written from the JAX package's builder; the
+port's own builder is ``sim/scene_builder.py``.
 """
 
 from __future__ import annotations
@@ -38,14 +40,28 @@ def save_scene(path, maps: MapStack, lanes: LaneGraph, scene: Scene,
   np.savez_compressed(path, **arrays)
 
 
+def field_struct(hint):
+  """(dataclass, optional) of a field's type hint: the hint itself when it
+  is a dataclass, or the dataclass member of a union with an empty tuple
+  (an optional sub-struct, such as ``Scene.scenarios``); (None, False)
+  for a tensor leaf."""
+  if dataclasses.is_dataclass(hint):
+    return hint, False
+  for arg in typing.get_args(hint):
+    if dataclasses.is_dataclass(arg):
+      return arg, True
+  return None, False
+
+
 def _build(cls, prefix: str, data: dict, device):
   hints = typing.get_type_hints(cls)
   kw = {}
   for f in dataclasses.fields(cls):
     key = f"{prefix}/{f.name}"
-    hint = hints[f.name]
-    if dataclasses.is_dataclass(hint):
-      kw[f.name] = _build(hint, key, data, device)
+    sub, optional = field_struct(hints[f.name])
+    if sub is not None:
+      if not optional or any(k.startswith(key + "/") for k in data):
+        kw[f.name] = _build(sub, key, data, device)
     elif key in data:
       kw[f.name] = torch.tensor(data[key], device=device)
     elif f.default is dataclasses.MISSING:

@@ -7,18 +7,24 @@ future (waypoints) are computed afterwards by shifting the recorded
 trajectory, as the reference reads future measurements
 (data.py:812-838). A tick makes no host sync.
 
-``collect_dagger_frames``, ``make_dagger_policy`` and
-``export_frames_jsonl`` are not ported yet.
+DAgger: ``collect_dagger_frames`` rolls a learned policy while the
+expert's carry state rides along (``make_dagger_policy``), so every
+recorded frame carries the expert's labels at a state the learned policy
+reached. ``export_frames_jsonl`` writes one episode's frames as a JSONL
+log on the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gzip
+import json
 
 import torch
 
 from carla_garage_tpu_torch.config import GlobalConfig
 from carla_garage_tpu_torch.maps.town_map import LaneGraph, MapStack
+from carla_garage_tpu_torch.sim import expert as expert_mod
 from carla_garage_tpu_torch.sim import geometry as geo
 from carla_garage_tpu_torch.sim.episode import sim_step
 from carla_garage_tpu_torch.sim.route_planner import route_lookup
@@ -78,8 +84,58 @@ def collect_expert_frames(cfg: GlobalConfig, maps: MapStack,
   return state, tree_map(lambda *xs: torch.stack(xs), *frames)
 
 
+def make_dagger_policy(model_policy):
+  """Combine a learned policy with the expert into one policy: the MODEL
+  drives (its controls reach the dynamics) while the expert's carry state
+  (planners, PID, hazard flags) advances along the visited trajectory.
+
+  The tick's draws are split by name: the expert takes its
+  ``expert.DRAW_KEYS`` (steer_noise), the model the rest; what is not
+  given each draws from the generator, the expert first. The updates
+  merge with the model's winning a shared key."""
+  def pol(cfg, maps, scene, state, generator=None, draws=None):
+    draws = draws or {}
+    ex_draws = {k: v for k, v in draws.items() if k in expert_mod.DRAW_KEYS}
+    ag_draws = {k: v for k, v in draws.items()
+                if k not in expert_mod.DRAW_KEYS}
+    _, ex_upd = expert_mod.expert_step(cfg, maps, scene, state,
+                                       generator=generator, draws=ex_draws)
+    control, ag_upd = model_policy(cfg, maps, scene, state,
+                                   generator=generator, draws=ag_draws)
+    return control, {**ex_upd, **ag_upd}
+
+  return pol
+
+
+def collect_dagger_frames(cfg: GlobalConfig, maps: MapStack,
+                          lanes: LaneGraph, scene: Scene, state: SimState,
+                          policy, n_frames: int,
+                          generator: torch.Generator | None = None,
+                          draws: list | None = None):
+  """DAgger datagen: roll the LEARNED policy for n_frames * SAVE_FREQ
+  ticks, recording one frame every SAVE_FREQ ticks with the EXPERT's
+  labels at the visited states (state.expert advances through
+  ``make_dagger_policy``). draws: one dict per tick (the expert's, the
+  policy's and the scenario engine's draws by name), or None to draw from
+  `generator`. Returns (final_state, Frames).
+
+  Route-relative labels (target speed, checkpoints, hazards, objects) are
+  right; waypoint labels follow the policy's own trajectory and should be
+  weighted 0."""
+  combined = make_dagger_policy(policy)
+  frames = []
+  for f in range(n_frames):
+    for i in range(SAVE_FREQ):
+      tick = draws[f * SAVE_FREQ + i] if draws is not None else None
+      state = sim_step(cfg, maps, lanes, scene, state, combined,
+                       generator=generator, draws=tick)
+    frames.append(_record_frame(cfg, scene, state))
+  return state, tree_map(lambda *xs: torch.stack(xs), *frames)
+
+
 def _record_frame(cfg: GlobalConfig, scene: Scene, st: SimState) -> Frames:
-  """Snapshot one training frame."""
+  """Snapshot one training frame (shared by the expert and DAgger
+  collectors)."""
   ex = st.expert
   ego = st.ego
   route = scene.route
@@ -109,6 +165,39 @@ def _record_frame(cfg: GlobalConfig, scene: Scene, st: SimState) -> Frames:
                    ex.stop_sign_close).to(torch.float32),
       time_s=st.time_s,
       alive=~st.done)
+
+
+def export_frames_jsonl(frames: Frames, path: str, episode: int = 0):
+  """Write one episode's frame log as JSONL (gzip for a '.gz' path): per
+  frame the ego's pose, speed, steer and brake, and the valid vehicles and
+  walkers, stopping at the first frame where the episode is done. The
+  frames move to the host once."""
+  f_np = {f.name: getattr(frames, f.name)[:, episode].cpu().numpy()
+          for f in dataclasses.fields(frames)}
+  op = gzip.open if path.endswith(".gz") else open
+  with op(path, "wt") as f:
+    for t in range(f_np["ego_pos"].shape[0]):
+      if not bool(f_np["alive"][t]):
+        break
+      rec = {
+          "frame": t,
+          "ego": {"pos": f_np["ego_pos"][t].tolist(),
+                  "yaw": float(f_np["ego_yaw"][t]),
+                  "speed": float(f_np["ego_speed"][t]),
+                  "steer": float(f_np["steer"][t]),
+                  "brake": float(f_np["brake"][t])},
+          "vehicles": [
+              {"pos": f_np["veh_pos"][t, v].tolist(),
+               "yaw": float(f_np["veh_yaw"][t, v]),
+               "speed": float(f_np["veh_speed"][t, v])}
+              for v in range(f_np["veh_yaw"].shape[1])
+              if bool(f_np["veh_valid"][t, v])],
+          "walkers": [
+              {"pos": f_np["wlk_pos"][t, w].tolist()}
+              for w in range(f_np["wlk_yaw"].shape[1])
+              if bool(f_np["wlk_valid"][t, w])],
+      }
+      f.write(json.dumps(rec) + "\n")
 
 
 def checkpoint_labels(frames: Frames, scene: Scene, n_ckpt: int,

@@ -4,8 +4,8 @@ Every NPC follows a directed lane polyline of the town lane graph exactly
 (rail following), with IDM-style longitudinal control: leader gap keeping,
 red-light compliance at stop-line triggers, junction conflict yielding with
 deterministic right of way, and don't-block-the-box holds at junction
-entries. All [B,V] masked tensor ops. Scenario effects are not ported yet,
-so ``traffic_step`` takes none.
+entries. All [B,V] masked tensor ops. Scenario effects
+(``sim/scenarios.scenario_step``) cap speeds and force braking per slot.
 """
 
 from __future__ import annotations
@@ -29,8 +29,11 @@ LIGHT_STOP_DIST = 5.0
 
 
 def traffic_step(cfg: GlobalConfig, lanes: LaneGraph, scene: Scene,
-                 state: SimState) -> VehicleStates:
-  """Advance all NPC vehicles one tick."""
+                 state: SimState, effects: dict | None = None
+                 ) -> VehicleStates:
+  """Advance all NPC vehicles one tick. `effects` carries the scenario
+  overrides (``sim/scenarios.py``): forced braking and speed caps per
+  slot."""
   s = cfg.sim
   veh = state.vehicles
   B, V = veh.yaw.shape
@@ -131,9 +134,13 @@ def traffic_step(cfg: GlobalConfig, lanes: LaneGraph, scene: Scene,
   # --- IDM-style longitudinal control on the rail ---
   dead_ahead = (nxt < 0) & ((total_here - veh.lane_t) < 12.0)
   target_speed = torch.where(dead_ahead, 2.0, NPC_TARGET_SPEED)
+  if effects is not None:
+    target_speed = torch.minimum(target_speed, effects["npc_speed_cap"])
   desired_gap = SAFE_MIN_GAP + veh.speed * SAFE_TIME_HEADWAY
   brake = (gap < desired_gap) | light_block | junction_yield | box_hold | \
       ego_block | (veh.speed > target_speed + 0.5)
+  if effects is not None:
+    brake = brake | effects["npc_brake_override"]
   accel = torch.where(brake, NPC_BRAKE,
                       torch.where(veh.speed < target_speed, NPC_ACCEL, 0.0))
   speed = torch.clamp(veh.speed + accel * s.dt, min=0.0)
@@ -160,6 +167,8 @@ def traffic_step(cfg: GlobalConfig, lanes: LaneGraph, scene: Scene,
   # --- despawn at dead ends and on long standstill ---
   stand = torch.where(speed < 0.05, veh.stand_ticks + 1, 0).to(torch.int32)
   deadlocked = stand > 800
+  if effects is not None and "npc_speed_cap" in effects:
+    deadlocked &= effects["npc_speed_cap"] > 0.01    # scenario-held exempt
   despawn = ((lane_t2 >= total_here - 1.0) & (nxt < 0)) | deadlocked
   valid = veh.valid & ~despawn
 

@@ -10,7 +10,7 @@ every tensor leaf to a device.
 Shapes use these axis names:
   B — batch of parallel episodes, V — vehicle slots, W — walker slots,
   L — traffic-light slots, S — stop-sign slots, R — dense route points,
-  n — PID window.
+  K — scenario trigger slots, n — PID window.
 
 The JAX ``SimState.rng`` key has no field here: random draws come from a
 ``torch.Generator`` that the caller passes to ``sim_step``/``rollout``, or
@@ -249,6 +249,32 @@ class CriteriaState(Struct):
   event_count: torch.Tensor        # [B] int32
 
 
+@dataclasses.dataclass
+class ScenarioSpecs(Struct):
+  """Static per-episode scenario definitions, [B,K] slots (see
+  ``sim/scenarios.py``). trigger_kind selects the arming predicate
+  (``sim/triggers.TriggerKind``): distance (trigger_dist), time to arrival
+  (trigger_param seconds), region (trigger_extent half-sizes) or ego
+  velocity (trigger_param m/s)."""
+  kind: torch.Tensor            # [B,K] int32 ScenarioType
+  trigger_pos: torch.Tensor     # [B,K,2] world position that arms the row
+  trigger_dist: torch.Tensor    # [B,K]
+  trigger_kind: torch.Tensor    # [B,K] int32 TriggerKind
+  trigger_param: torch.Tensor   # [B,K] TTA seconds / velocity threshold
+  trigger_extent: torch.Tensor  # [B,K,2] region half-extent
+  actor_slot: torch.Tensor      # [B,K] int32 vehicle slot it controls (-1)
+  duration: torch.Tensor        # [B,K] int32 ticks the effect lasts
+  magnitude: torch.Tensor       # [B,K] steer noise, speed cap, ...
+  valid: torch.Tensor           # [B,K] bool
+
+
+@dataclasses.dataclass
+class ScenarioState(Struct):
+  triggered: torch.Tensor     # [B,K] bool (latched)
+  ticks_active: torch.Tensor  # [B,K] int32
+  wait_ticks: torch.Tensor    # [B,K] int32 ego stopped behind a waiting actor
+
+
 class EventKind:
   """Infraction event codes in CriteriaState.event_kind."""
   NONE = 0
@@ -263,7 +289,9 @@ class EventKind:
 class SimState(Struct):
   """Full per-tick simulation state for a batch of episodes.
 
-  `agent` is the learned policy's carry (empty tuple when none)."""
+  `agent` is the learned policy's carry (empty tuple when none);
+  `scenario` the scenario triggers' state (empty tuple when the scene
+  carries no scenarios)."""
   tick: torch.Tensor         # [B] int32
   done: torch.Tensor         # [B] bool
   ego: EgoState
@@ -272,7 +300,7 @@ class SimState(Struct):
   expert: ExpertState
   criteria: CriteriaState
   agent: Any = ()
-  scenario: Any = ()
+  scenario: ScenarioState | tuple = ()
 
   @property
   def time_s(self) -> torch.Tensor:
@@ -288,4 +316,4 @@ class Scene(Struct):
   stops: StopSigns
   walkers_spec: WalkerSpec
   timeout_ticks: torch.Tensor  # [B] int32
-  scenarios: Any = ()
+  scenarios: ScenarioSpecs | tuple = ()

@@ -2,8 +2,9 @@
 
   python3 chip_smoke.py                     # build, check, drive
   python3 chip_smoke.py --profile out.txt   # and write device-time
-                                            # profiles of two ticks and
-                                            # one training step there
+                                            # profiles of two ticks, one
+                                            # training step and two eval
+                                            # ticks there
 
 Phases, each of which fails the run if it fails:
   1. card: print the card's name and power limit; build every CUDA kernel
@@ -39,12 +40,31 @@ Phases, each of which fails the run if it fails:
   7. kernels: each kernel against its plain PyTorch version on the card,
      at the shapes the main paths gave it (captured during warm-ups) and
      on random ragged cases, with times and bounds;
-  8. the output: every tick-state leaf finite, ticks advanced.
+  8. scenario tick reference: a scene of the port's own builder (B=2,
+     ``make_town_batch("synth", use_scenarios=True)``) with one hand-made
+     CONTROL_LOSS row just ahead of the ego, 60 expert ticks on the card
+     and on the CPU from the same steer-noise and control-loss draws,
+     every state leaf; the rows triggered, by type;
+  9. closed-loop evaluation (slice 4's main path, the path of the
+     training script's ``closed_loop_eval``): the port builds a 16-route
+     scenario scene (100 NPCs, 2 walkers), the full-width bf16 TransFuser++
+     with seeded random weights drives it through ``rollout_chunked``
+     (512 ticks in chunks of 256), then ``compute_scores`` -> records ->
+     ``aggregate``, written with ``write_endpoint`` and ``write_csv`` and
+     read back; ms/tick (timed with torch's sync debug mode off), launch
+     counts, the scenario rows triggered by type; then the host syncs
+     (none in a tick, one a chunk) on a short chunked run under the sync
+     debug mode, timed with the mode off and on;
+  10. DAgger datagen (slice 4's main path, second half): that policy on
+     that scene through ``collect_dagger_frames``, one chunk of 20 frames
+     (100 ticks); no host sync in a tick, every frame leaf finite;
+  11. the output: every tick-state leaf finite, ticks advanced.
 
-The last two lines of standard output are the ``kernels`` JSON and
-``{"ok": true, "device": ...}``. A kernel's ``launches`` there is the sum
-over the main paths' timed runs, ``launches_by_path`` each path's count.
-Without a card it exits non-zero and prints no result.
+Every phase prints its wall time. The last two lines of standard output
+are the ``kernels`` JSON and ``{"ok": true, "device": ...}``. A kernel's
+``launches`` there is the sum over the main paths' timed runs,
+``launches_by_path`` each path's count. Without a card it exits non-zero
+and prints no result.
 """
 
 import argparse
@@ -67,10 +87,35 @@ TICKS = 12                        # timed ticks of the sensor-on tick
 DATAGEN_FRAMES = 40               # recorded frames, 5 ticks each
 MICRO_BATCHES = 4                 # frames_per_step: 4 x 16 = 64 samples
 TRAIN_STEPS = 3                   # timed full-width training steps
+SCENARIO_TICKS = 60               # expert ticks of the scenario reference
+EVAL_TICKS = 512                  # closed-loop eval: the script runs 6,000
+EVAL_CHUNK = 256                  # ticks in chunks of 512
+SYNC_CHECK_CHUNKS = 2             # the eval's host-sync check: 2 chunks
+SYNC_CHECK_CHUNK = 8              # of 8 ticks
+DAGGER_FRAMES = 20                # one chunk of the DAgger collector
 
 
 def log(*a):
   print(*a, flush=True)
+
+
+class PhaseClock:
+  """Numbers the phases, logs each one's title as it starts and its wall
+  time when the next one starts (or at ``stop``)."""
+
+  def __init__(self):
+    self.n, self.t0 = 0, None
+
+  def start(self, title):
+    self.stop()
+    self.n += 1
+    log(f"phase {self.n}: {title}")
+    self.t0 = time.perf_counter()
+
+  def stop(self):
+    if self.t0 is not None:
+      log(f"  phase {self.n} wall time {time.perf_counter() - self.t0:.1f} s")
+      self.t0 = None
 
 
 def card_line() -> str:
@@ -660,6 +705,254 @@ def train_full_width(cfg, maps, scene, frames, kernels, args, card):
   return captured, launches
 
 
+def scenario_counts(scene, state) -> dict:
+  """{type name: rows triggered} over the batch's valid scenario rows."""
+  from carla_garage_tpu_torch.sim.scenarios import ScenarioType
+  sp = scene.scenarios
+  fired = (state.scenario.triggered & sp.valid).cpu()
+  kind = sp.kind.cpu()
+  return {name: f"{int((fired & (kind == v)).sum())}/"
+                f"{int(((kind == v) & sp.valid.cpu()).sum())}"
+          for name, v in vars(ScenarioType).items()
+          if name.isupper() and name != "NONE"}
+
+
+def scenario_reference(cfg):
+  """60 expert ticks on a B=2 scenario scene of the port's builder, with a
+  hand-made CONTROL_LOSS row a few metres ahead of the ego's start, on the
+  card and on the CPU from the same draws."""
+  from carla_garage_tpu_torch.sim.episode import sim_step
+  from carla_garage_tpu_torch.sim.scenarios import ScenarioType
+  from carla_garage_tpu_torch.sim.scene_builder import make_town_batch
+
+  B = 2
+  t0 = time.perf_counter()
+  _, maps, lanes, scene, state = make_town_batch(
+      cfg, "synth", batch=B, seed=1, n_vehicles=8, n_walkers=2,
+      use_scenarios=True, device="cpu")
+  log(f"  scene built on the host in {time.perf_counter() - t0:.2f} s")
+  # the synthetic town has no annotations, so the builder emits no
+  # CONTROL_LOSS row: put one in the last (free) row, armed within 10 m of
+  # the route point 8 m ahead, for 40 ticks
+  sp = scene.scenarios
+  K = sp.kind.shape[1]
+  assert not bool(sp.valid[:, K - 1].any())
+  set_row = lambda t, v: torch.cat([t[:, :K - 1], torch.full_like(
+      t[:, K - 1:], v)], 1)
+  sp = sp.replace(
+      kind=set_row(sp.kind, ScenarioType.CONTROL_LOSS),
+      trigger_pos=torch.cat([sp.trigger_pos[:, :K - 1],
+                             scene.route.points[:, 8, None]], 1),
+      trigger_dist=set_row(sp.trigger_dist, 10.0),
+      duration=set_row(sp.duration, 40), magnitude=set_row(sp.magnitude, 0.1),
+      valid=set_row(sp.valid, True))
+  scene = scene.replace(scenarios=sp)
+  gen = torch.Generator().manual_seed(6)
+  draws = [{"steer_noise": torch.randn((B,), generator=gen),
+            "control_loss": torch.randn((B, K), generator=gen)}
+           for _ in range(SCENARIO_TICKS)]
+  runs = {}
+  for dev in ("cpu", "cuda"):
+    m, ln, sc, st = (x.to(dev) for x in (maps, lanes, scene, state))
+    for d in draws:
+      st = sim_step(cfg, m, ln, sc, st,
+                    draws={k: v.to(dev) for k, v in d.items()})
+    runs[dev] = st
+  torch.cuda.synchronize()
+  worst = leaves_close(runs["cuda"], runs["cpu"], "scenarios, card vs CPU")
+  final = runs["cpu"]
+  cl_ticks = final.scenario.ticks_active[:, K - 1].tolist()
+  assert min(cl_ticks) > 0, cl_ticks
+  log(f"  card vs CPU, {SCENARIO_TICKS} expert ticks with scenarios at "
+      f"B={B}: max |diff| of float leaves {worst:.3g} (bar 1e-4 abs + 1e-4 "
+      f"rel), ints and bools equal; CONTROL_LOSS active ticks {cl_ticks}")
+  log(f"  rows triggered (triggered/valid): {scenario_counts(scene, final)}")
+
+
+def closed_loop_eval(cfg, kernels, args, card):
+  """The closed-loop evaluation at full width on a 16-route scenario scene
+  that the port builds. Returns (maps, lanes, scene, start state, policy,
+  launches, ticks run)."""
+  import tempfile
+
+  from carla_garage_tpu_torch.agents.sensor_agent import (
+      make_transfuser_policy, sensor_agent_reset)
+  from carla_garage_tpu_torch.eval import benchmark
+  from carla_garage_tpu_torch.maps import native_router
+  from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
+                                                        TransfuserConfig)
+  from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
+  from carla_garage_tpu_torch.sensors.lidar import lidar_ray_grid
+  from carla_garage_tpu_torch.sim import episode
+  from carla_garage_tpu_torch.sim.scene_builder import make_town_batch
+  from carla_garage_tpu_torch.sim.scoring import compute_scores, global_stats
+  from carla_garage_tpu_torch.structs import tree_items
+
+  B = 16
+  t0 = time.perf_counter()
+  _, maps, lanes, scene, state = make_town_batch(
+      cfg, "synth", batch=B, seed=0, n_vehicles=100, n_walkers=2,
+      use_scenarios=True)
+  torch.cuda.synchronize()
+  log(f"  scene of {B} routes (100 NPCs, 2 walkers, scenarios) built in "
+      f"{time.perf_counter() - t0:.2f} s on the host; route gaps through "
+      f"the {'native A*' if native_router.available() else 'scipy'} "
+      f"router")
+  tcfg = TransfuserConfig()
+  torch.manual_seed(0)
+  model = LidarCenterNet(tcfg).cuda()
+  lid_f, lid_r = lidar_ray_grid(cfg, half=0), lidar_ray_grid(cfg, half=1)
+  n_lidar = lid_f.shape[0] * lid_f.shape[1]
+  policy = make_transfuser_policy(model, None, tcfg, camera_ray_grid(cfg),
+                                  lid_f, lid_r, direct=True, bf16=True,
+                                  brake_threshold=0.33)
+  start = state.replace(agent=sensor_agent_reset(cfg, B, n_lidar))
+  gen = torch.Generator(device="cuda").manual_seed(3)
+
+  # count the chunks: rollout_chunked runs each through episode.rollout
+  chunks = []
+  real_rollout = episode.rollout
+
+  def counted(*a, **kw):
+    chunks.append(1)
+    return real_rollout(*a, **kw)
+
+  def chunked(n_ticks, chunk, check_syncs=False):
+    """(final state, chunks run, seconds, host syncs or None) of
+    rollout_chunked from start; the rollout runs under torch's sync debug
+    mode when check_syncs is set."""
+    out = []
+    run = lambda: out.append(episode.rollout_chunked(
+        cfg, maps, lanes, scene, start, n_ticks, chunk=chunk, policy=policy,
+        generator=gen))
+    chunks.clear()
+    episode.rollout = counted
+    try:
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      syncs = host_syncs(run) if check_syncs else run()
+      torch.cuda.synchronize()
+      return out[0], len(chunks), time.perf_counter() - t0, syncs
+    finally:
+      episode.rollout = real_rollout
+
+  for k in kernels.values():
+    k.launches = 0
+  final, n_chunks, dt, _ = chunked(EVAL_TICKS, EVAL_CHUNK)
+  launches = {n: k.launches for n, k in kernels.items()}
+  ticks = n_chunks * EVAL_CHUNK
+  log(f"  {ticks} ticks ({n_chunks} chunks of {EVAL_CHUNK}) at B={B}: "
+      f"{1e3 * dt / ticks:.2f} ms/tick, {B * ticks / dt:.1f} env-steps/s  "
+      f"({card})")
+  log(f"  launches in the rollout: {launches}")
+  assert launches == {"raycast_boxes": 2 * ticks, "fill_boxes_bev": 0}, \
+      launches
+
+  # the host syncs, on a short chunked run from the same start: once with
+  # torch's sync debug mode off and once with it on, for its cost
+  n = SYNC_CHECK_CHUNKS * SYNC_CHECK_CHUNK
+  dt_off = chunked(n, SYNC_CHECK_CHUNK)[2]
+  _, n_chunks, dt_on, syncs = chunked(n, SYNC_CHECK_CHUNK, check_syncs=True)
+  log(f"  host syncs in {n} ticks ({n_chunks} chunks of {SYNC_CHECK_CHUNK}):"
+      f" {len(syncs)} {syncs}; {1e3 * dt_off / n:.2f} ms/tick with the sync "
+      f"debug mode off, {1e3 * dt_on / n:.2f} with it on")
+  assert n_chunks == SYNC_CHECK_CHUNKS and len(syncs) == n_chunks and \
+      all("episode.py" in x for x in syncs), \
+      "one host sync a chunk, the done check"
+  tick_syncs = host_syncs(lambda: episode.sim_step(
+      cfg, maps, lanes, scene, final, policy, generator=gen))
+  log(f"  host syncs in one eval tick: {len(tick_syncs)} {tick_syncs}")
+  assert not tick_syncs, "an eval tick must not wait for the device"
+  log(f"  scenario rows triggered (triggered/valid): "
+      f"{scenario_counts(scene, final)}")
+  for path, x in tree_items(final):
+    if x.dtype.is_floating_point:
+      assert bool(torch.isfinite(x).all()), path
+  assert bool(((final.tick > 0) | final.done).all())
+
+  t0 = time.perf_counter()
+  lens = torch.as_tensor(benchmark._route_lens(scene), device="cuda")
+  g = {k: float(v) for k, v in global_stats(compute_scores(
+      cfg, final.criteria, lens)).items()}
+  records = benchmark._records(cfg, scene, final,
+                               [f"synth_{i}" for i in range(B)], "SynthTown")
+  agg = benchmark.aggregate(records)
+  for k in ("driving_score", "route_completion", "infraction_score"):
+    assert abs(agg[k] - g[k]) <= 1e-4 * max(abs(g[k]), 1.0), (k, agg, g)
+  with tempfile.TemporaryDirectory() as tmp:
+    path = pathlib.Path(tmp) / "endpoint.json"
+    benchmark.write_endpoint(records, agg, str(path),
+                             meta={"ticks": ticks, "seed": 0, "card": card})
+    benchmark.write_csv(records, str(pathlib.Path(tmp) / "results.csv"))
+    back = json.loads(path.read_text())
+    rows = (pathlib.Path(tmp) / "results.csv").read_text().splitlines()
+  assert back["_checkpoint"]["records"] == records and len(rows) == B + 1
+  assert back["_checkpoint"]["global_record"] == agg
+  statuses = sorted({r["status"] for r in records})
+  log(f"  scores in {time.perf_counter() - t0:.2f} s: DS "
+      f"{agg['driving_score']:.3f}, RC {agg['route_completion']:.3f}, IS "
+      f"{agg['infraction_score']:.3f} over {agg['num_routes']} routes; "
+      f"statuses {statuses}; endpoint and CSV read back")
+
+  if args.profile:
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      episode.rollout(cfg, maps, lanes, scene, start, 2, policy,
+                      generator=gen)
+      torch.cuda.synchronize()
+    write_profile(args.profile, card, "two eval ticks with scenarios", prof,
+                  2, "a")
+  return maps, lanes, scene, start, policy, launches, ticks
+
+
+def dagger(cfg, maps, lanes, scene, start, policy, kernels, card):
+  """DAgger datagen with the eval's policy on the eval's scene, from its
+  start state: one chunk of DAGGER_FRAMES frames. Returns (launches,
+  ticks run)."""
+  from carla_garage_tpu_torch.sim.datagen import (SAVE_FREQ,
+                                                  collect_dagger_frames,
+                                                  make_dagger_policy)
+  from carla_garage_tpu_torch.sim.episode import sim_step
+  from carla_garage_tpu_torch.structs import tree_items
+
+  B = start.tick.shape[0]
+  gen = torch.Generator(device="cuda").manual_seed(4)
+  n_ticks = DAGGER_FRAMES * SAVE_FREQ
+  for k in kernels.values():
+    k.launches = 0
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  final, frames = collect_dagger_frames(cfg, maps, lanes, scene, start,
+                                        policy, DAGGER_FRAMES, generator=gen)
+  torch.cuda.synchronize()
+  dt = time.perf_counter() - t0
+  launches = {n: k.launches for n, k in kernels.items()}
+  log(f"  {DAGGER_FRAMES} frames ({n_ticks} ticks) at B={B}: "
+      f"{1e3 * dt / n_ticks:.2f} ms/tick, {B * n_ticks / dt:.1f} "
+      f"env-steps/s  ({card})")
+  log(f"  launches: {launches}")
+  assert launches == {"raycast_boxes": 2 * n_ticks, "fill_boxes_bev": 0}, \
+      launches
+  syncs = host_syncs(lambda: sim_step(cfg, maps, lanes, scene, final,
+                                      make_dagger_policy(policy),
+                                      generator=gen))
+  log(f"  host syncs in one DAgger tick: {len(syncs)} {syncs}")
+  assert not syncs, "a DAgger tick must not wait for the device"
+  n_leaves = 0
+  for path, x in tree_items(frames):
+    assert x.shape[:2] == (DAGGER_FRAMES, B), (path, x.shape)
+    if x.dtype.is_floating_point:
+      assert bool(torch.isfinite(x).all()), path
+    n_leaves += 1
+  assert int(final.expert.planner_dense.idx.max()) > 0
+  log(f"  {n_leaves} frame leaves finite; alive frames "
+      f"{int(frames.alive.sum())}/{DAGGER_FRAMES * B}; expert brake share "
+      f"{float(frames.brake.mean()):.3f}; ego speed max "
+      f"{float(frames.ego_speed.max()):.2f} m/s")
+  return launches, n_ticks
+
+
 def main():
   ap = argparse.ArgumentParser()
   ap.add_argument("--profile", metavar="PATH",
@@ -684,8 +977,9 @@ def main():
   torch.backends.cudnn.allow_tf32 = False
   card = card_line()
   kind = torch.cuda.get_device_name(0)
-  log(f"phase 1: card {card}; torch {torch.__version__} cuda "
-      f"{torch.version.cuda}")
+  clock = PhaseClock()
+  clock.start(f"card {card}; torch {torch.__version__} cuda "
+              f"{torch.version.cuda}")
   t0 = time.perf_counter()
   texts = build.build_all()
   log(f"  built {sorted(texts)} in {time.perf_counter() - t0:.1f} s "
@@ -701,23 +995,23 @@ def main():
   kernels = {"raycast_boxes": ops_raycast.raycast_boxes,
              "fill_boxes_bev": ops_bev_fill.fill_boxes}
 
-  log("phase 2: tick reference, card vs CPU")
+  clock.start("tick reference, card vs CPU")
   small_reference_check(cfg, maps, lanes, scene, state0)
-  log("phase 3: training reference, card vs CPU")
+  clock.start("training reference, card vs CPU")
   small_train_reference(cfg, maps, lanes, scene, state0)
 
-  log("phase 4: sensor-on tick, full width")
+  clock.start("sensor-on tick, full width")
   state, start, tick_inputs, tick_launches = sensor_tick(
       cfg, maps, lanes, scene, state0, kernels, args, card)
 
-  log("phase 5: expert datagen on the card")
+  clock.start("expert datagen on the card")
   frames = datagen(cfg, maps, lanes, scene, state0, card)
 
-  log("phase 6: training at full width")
+  clock.start("training at full width")
   train_inputs, train_launches = train_full_width(
       cfg, maps, scene, frames, kernels, args, card)
 
-  log("phase 7: kernels against their plain versions on the card")
+  clock.start("kernels against their plain versions on the card")
   for name in build.KERNELS:
     log(f"  {name} SASS loops: {sass_loops(build.library_path(name))}")
   rc_err, rc_ms, rc_plain, n_bytes, n_flops = 0.0, 0.0, 0.0, 0, 0
@@ -788,7 +1082,18 @@ def main():
                            timed=False)
     fill_err = max(fill_err, err)
 
-  log("phase 8: output")
+  clock.start("scenario tick reference, card vs CPU")
+  scenario_reference(cfg)
+
+  clock.start("closed-loop evaluation with scenarios, full width")
+  e_maps, e_lanes, e_scene, e_start, policy, eval_launches, eval_ticks = \
+      closed_loop_eval(cfg, kernels, args, card)
+
+  clock.start("DAgger datagen on the card")
+  dagger_launches, dagger_ticks = dagger(cfg, e_maps, e_lanes, e_scene,
+                                         e_start, policy, kernels, card)
+
+  clock.start("output")
   n_leaves = 0
   for path, x in tree_items(state):
     if x.dtype.is_floating_point:
@@ -802,28 +1107,29 @@ def main():
   log(f"  {n_leaves} tick-state leaves finite; ticks {state.tick.tolist()}; "
       f"route completion max "
       f"{float(state.criteria.route_completion.max()):.4f}")
-  log(f"  launches: raycast_boxes {tick_launches['raycast_boxes']} in "
-      f"{TICKS} ticks + {train_launches['raycast_boxes']} in {TRAIN_STEPS} "
-      f"train steps; fill_boxes_bev {train_launches['fill_boxes_bev']} in "
-      f"{TRAIN_STEPS} train steps")
+  by_path = {name: {"tick": tick_launches[name],
+                    "train_step": train_launches[name],
+                    "eval": eval_launches[name],
+                    "dagger": dagger_launches[name]} for name in kernels}
+  log(f"  launches: {by_path} (tick: {TICKS} ticks, train_step: "
+      f"{TRAIN_STEPS} steps, eval: {eval_ticks} ticks, dagger: "
+      f"{dagger_ticks} ticks)")
+  clock.stop()
 
   log(card)
   log(json.dumps({"kernels": [
       {"name": "raycast_boxes", "route": "cuda",
        "source": "carla_garage_tpu_torch/csrc/raycast_boxes.cu",
        "replaces": "carla_garage_tpu/ops/pallas/raycast.py:85",
-       "launches": tick_launches["raycast_boxes"] +
-       train_launches["raycast_boxes"],
-       "launches_by_path": {"tick": tick_launches["raycast_boxes"],
-                            "train_step": train_launches["raycast_boxes"]},
+       "launches": sum(by_path["raycast_boxes"].values()),
+       "launches_by_path": by_path["raycast_boxes"],
        "max_abs_err": rc_err, "ms": rc_ms, "plain_ms": rc_plain,
        "bound_ms": rc_bound, "bound_by": rc_by, "library_ms": None},
       {"name": "fill_boxes_bev", "route": "cuda",
        "source": "carla_garage_tpu_torch/csrc/fill_boxes_bev.cu",
        "replaces": "carla_garage_tpu/ops/pallas/bev_fill.py:53",
-       "launches": train_launches["fill_boxes_bev"],
-       "launches_by_path": {"tick": tick_launches["fill_boxes_bev"],
-                            "train_step": train_launches["fill_boxes_bev"]},
+       "launches": sum(by_path["fill_boxes_bev"].values()),
+       "launches_by_path": by_path["fill_boxes_bev"],
        "max_abs_err": fill_err, "ms": fill_ms, "plain_ms": fill_plain,
        "bound_ms": fill_bound, "bound_by": fill_by, "library_ms": None}]}))
   log(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 """Port parity: the JAX -> torch bridge and the committed scene file.
 
-The port has no scene builder yet. Its full-size runs load
-``carla_garage_tpu_torch/data/synth_b16_v100_seed0.npz``, which
-``write_synth_scene`` makes from the JAX package's ``make_synthetic_batch``.
-Rewrite it with
+``carla_garage_tpu_torch/data/synth_b16_v100_seed0.npz`` holds a scene
+that ``write_synth_scene`` makes from the JAX package's
+``make_synthetic_batch`` (the port's own builder is tested in
+``test_torch_port_scenarios.py``). Rewrite it with
 
   JAX_PLATFORMS=cpu python tests/test_torch_port_scene.py
 
@@ -43,15 +43,19 @@ def synth_config(max_vehicles=100):
 def jax_leaves(obj, cls, prefix, out=None) -> dict:
   """{path: numpy array} of a JAX struct, walked by the field names of its
   port counterpart `cls` (fields the port lacks, like the JAX rng key, are
-  left out; empty tuples are skipped)."""
+  left out; empty tuples are skipped; an optional sub-struct, such as the
+  scenario specs, is walked when present)."""
   out = {} if out is None else out
   hints = typing.get_type_hints(cls)
   for f in dataclasses.fields(cls):
     v = getattr(obj, f.name)
     key = f"{prefix}/{f.name}"
-    if dataclasses.is_dataclass(hints[f.name]):
-      jax_leaves(v, hints[f.name], key, out)
-    elif not (isinstance(v, tuple) and v == ()):
+    if isinstance(v, tuple) and v == ():
+      continue
+    sub, _ = scene_io.field_struct(hints[f.name])
+    if sub is not None:
+      jax_leaves(v, sub, key, out)
+    else:
       out[key] = np.asarray(v)
   return out
 
@@ -95,6 +99,35 @@ def test_committed_scene_matches_jax_builder():
   assert n > 80
   assert loaded[3].vehicles.pos.shape == (16, 100, 2)
   assert int(loaded[3].vehicles.valid.sum()) > 0
+
+
+def test_scenarios_survive_the_bridge_and_the_file(tmp_path):
+  """A JAX scene with scenarios keeps its specs and trigger state through
+  the test bridge and through save_scene / load_scene, leaf for leaf."""
+  from carla_garage_tpu.sim.scene_builder import make_town_batch
+  from carla_garage_tpu_torch.structs import ScenarioSpecs, ScenarioState
+  _, maps, lanes, scene, state = make_town_batch(
+      synth_config(16), "synth", batch=2, seed=2, n_vehicles=4,
+      n_walkers=1, use_scenarios=True)
+  assert scene.scenarios != () and state.scenario != ()
+  ported = jax_batch_to_port(maps, lanes, scene, state)
+  path = tmp_path / "scene.npz"
+  scene_io.save_scene(path, *ported)
+  for _, _, t_scene, t_state in (ported, scene_io.load_scene(path, "cpu")):
+    assert isinstance(t_scene.scenarios, ScenarioSpecs)
+    assert isinstance(t_state.scenario, ScenarioState)
+    for jx, port, cls in ((scene.scenarios, t_scene.scenarios,
+                           ScenarioSpecs),
+                          (state.scenario, t_state.scenario, ScenarioState)):
+      want = jax_leaves(jx, cls, "")
+      got = dict(tree_items(port, ""))
+      assert set(want) == set(got) and len(want) >= 3
+      for key, w in want.items():
+        assert got[key].numpy().dtype == w.dtype, key
+        np.testing.assert_array_equal(got[key].numpy(), w, err_msg=key)
+  assert bool(t_scene.scenarios.valid.any())
+  # a scene without scenarios still loads with the empty default
+  assert scene_io.load_scene(device="cpu")[2].scenarios == ()
 
 
 def test_load_scene_refuses_cuda_without_a_card(monkeypatch):

@@ -11,10 +11,13 @@ dropoff uniforms) come from the caller's ``torch.Generator``, or as
 tensors in ``draws`` under the keys of ``DRAW_KEYS``, so that a test can
 feed in the JAX package's own draws.
 
-Options not ported yet raise ``NotImplementedError``: ``map_track``,
-``stop_control``, ``jpeg_quality``, a temporal LiDAR buffer
-(``seq_len > 1``) and the waypoint controller (``direct=False``, which
-needs the model's waypoint GRU).
+The published operating points: ensembles (a list of state dicts,
+outputs averaged), ``uncertainty_weight`` / ``brake_threshold``, JPEG
+artifacts on the live camera (``jpeg_quality``), a temporal LiDAR buffer
+(``seq_len > 1``: older half sweeps voxelize into extra channel pairs),
+the MAP track (``map_track``), the waypoint controller (``direct=False``,
+with the model's ``use_wp_gru`` head) and the detected-stop-sign
+controller (``stop_control``, the LAV point).
 """
 
 from __future__ import annotations
@@ -25,11 +28,14 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from carla_garage_tpu_torch.agents.controllers import control_pid_direct
+from carla_garage_tpu_torch.agents.controllers import (control_pid,
+                                                       control_pid_direct)
 from carla_garage_tpu_torch.config import GlobalConfig
 from carla_garage_tpu_torch.device import const, resolve_device
 from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
                                                       TransfuserConfig)
+from carla_garage_tpu_torch.ops.detection import topk_decode
+from carla_garage_tpu_torch.ops.jpeg import jpeg_artifacts
 from carla_garage_tpu_torch.sensors.camera import render_camera
 from carla_garage_tpu_torch.sensors.lidar import render_lidar
 from carla_garage_tpu_torch.sensors.voxelize import voxelize
@@ -63,18 +69,19 @@ class SensorAgentState(Struct):
   prev_pose: torch.Tensor         # [B,K,3] filtered (x,y,yaw) per sweep
   stuck_count: torch.Tensor       # [B] int32
   force_move: torch.Tensor        # [B] int32 remaining creep frames
-  stop_box: torch.Tensor          # [B,5] (stop-sign controller, not ported)
+  # the detected-stop-sign controller: one tracked stop-sign detection
+  # in the current ego frame and the cooldown after it was cleared
+  stop_box: torch.Tensor          # [B,5] x, y, ex, ey, yaw
   stop_box_valid: torch.Tensor    # [B] bool
-  clear_stop: torch.Tensor        # [B] int32
+  clear_stop: torch.Tensor        # [B] int32 cooldown ticks
 
 
 def sensor_agent_reset(cfg: GlobalConfig, B: int, n_lidar: int,
                        seq_len: int = 1, device="cuda") -> SensorAgentState:
-  if seq_len > 1:
-    raise NotImplementedError("the temporal LiDAR buffer (seq_len > 1) is "
-                              "not ported yet")
+  """seq_len > 1 keeps that many past half sweeps (the model then takes
+  ``lidar_channels = 2 * seq_len``)."""
   dev = resolve_device(device)
-  K = 1
+  K = max(seq_len, 1)
 
   def planner():
     return PlannerState(idx=torch.zeros((B,), dtype=torch.int32, device=dev),
@@ -139,12 +146,15 @@ def make_transfuser_policy(model: LidarCenterNet, params,
   float32), as the JAX package's bf16 policy does.
 
   direct=True uses the classified target speed + checkpoint-angle
-  controller (the only one ported yet). uncertainty_weight: weighted
-  expectation of the speed classes with a brake-probability override,
-  else argmax."""
-  if not direct or map_track or stop_control or jpeg_quality is not None:
-    raise NotImplementedError("direct=False, map_track, stop_control and "
-                              "jpeg_quality are not ported yet")
+  controller, else the waypoint controller on the model's ``pred_wp``
+  (``use_wp_gru``). uncertainty_weight: weighted expectation of the speed
+  classes with a brake-probability override, else argmax. map_track aims
+  at the HD-map route point ahead instead of the predicted checkpoint
+  (the MapAgent). stop_control: the agent tracks its own class-3
+  CenterNet detection and stops fully inside it before going on
+  (sensor_agent.py:617-657). jpeg_quality: JPEG artifacts on the live
+  camera at that libjpeg quality (sensor_agent.py:277-279; cv2's default
+  is 95)."""
   dev = next(model.parameters()).device
   members = _members(model, params, bf16)
   cam_grid = torch.as_tensor(camera_grid, device=dev)
@@ -202,12 +212,15 @@ def make_transfuser_policy(model: LidarCenterNet, params,
     # --- sensors: the camera, then the front or rear LiDAR half by tick
     # parity, selected before the cast ---
     cam = render_camera(cfg, maps, scene, state, cam_grid)
+    if jpeg_quality is not None:
+      cam = dict(cam, rgb=jpeg_artifacts(cam["rgb"], quality=jpeg_quality))
     even = (state.tick % 2 == 0)[:, None, None]
     grid_sel = torch.where(even, g_front[None], g_rear[None])
     pts_now, val_now = render_lidar(cfg, maps, scene, state, grid_sel,
                                     uniform=draws.get("lidar"),
                                     per_episode=True, generator=generator)
-    # realign the buffered half sweep into the current ego frame
+    # realign the buffered half sweeps into the current ego frame
+    K = ag.prev_lidar.shape[1]
     prev_pts_world = geo.ego_to_world(ag.prev_lidar[..., :2],
                                       ag.prev_pose[:, :, None, :2],
                                       ag.prev_pose[:, :, 2][:, :, None])
@@ -216,7 +229,14 @@ def make_transfuser_policy(model: LidarCenterNet, params,
     prev_pts = torch.cat([prev_in_cur, ag.prev_lidar[..., 2:]], -1)
     merged_pts = torch.cat([pts_now, prev_pts[:, 0]], 1)
     merged_val = torch.cat([val_now, ag.prev_lidar_valid[:, 0]], 1)
-    lidar_bev = voxelize(merged_pts, merged_val, cfg).permute(0, 2, 3, 1)
+    lidar_bev = voxelize(merged_pts, merged_val, cfg)
+    # the newest buffered sweep merges with the live one; older sweeps
+    # voxelize into extra channel pairs
+    if K > 1:
+      lidar_bev = torch.cat([lidar_bev] + [
+          voxelize(prev_pts[:, k], ag.prev_lidar_valid[:, k], cfg)
+          for k in range(1, K)], 1)
+    lidar_bev = lidar_bev.permute(0, 2, 3, 1)
 
     # --- model forward, averaged over the ensemble ---
     cmd_oh = command_onehot(cmd)
@@ -224,17 +244,26 @@ def make_transfuser_policy(model: LidarCenterNet, params,
             for m in members]
     out = tree_map(lambda *xs: sum(xs) / len(xs), *outs)
 
-    # --- control: classified target speed + checkpoint angle ---
-    probs = torch.softmax(out["pred_target_speed"], -1)
-    if uncertainty_weight:
-      ts = torch.sum(probs * target_speeds, -1)         # expectation
-      ts = torch.where(probs[:, 0] > brake_threshold, 0.0, ts)
+    # --- control ---
+    if direct:
+      probs = torch.softmax(out["pred_target_speed"], -1)
+      if uncertainty_weight:
+        ts = torch.sum(probs * target_speeds, -1)       # expectation
+        ts = torch.where(probs[:, 0] > brake_threshold, 0.0, ts)
+      else:
+        ts = target_speeds[torch.argmax(probs, -1)]
+      if map_track:
+        aim_world, _ = route_lookup(route.points, route.cmd,
+                                    route.num_valid, pl_dense.idx, 4)
+        aim = geo.world_to_ego(aim_world, pos_f, yaw_f)
+      else:
+        aim = out["pred_checkpoint"][:, 2]              # ~2nd checkpoint
+      angle = torch.rad2deg(torch.atan2(aim[:, 1], aim[:, 0])) / 90.0
+      steer, throttle, brake, pt2, ps2 = control_pid_direct(
+          ag.pid_turn, ag.pid_speed, ts, angle, ego.speed, cfg)
     else:
-      ts = target_speeds[torch.argmax(probs, -1)]
-    aim = out["pred_checkpoint"][:, 2]                  # ~2nd checkpoint aim
-    angle = torch.rad2deg(torch.atan2(aim[:, 1], aim[:, 0])) / 90.0
-    steer, throttle, brake, pt2, ps2 = control_pid_direct(
-        ag.pid_turn, ag.pid_speed, ts, angle, ego.speed, cfg)
+      steer, throttle, brake, pt2, ps2 = control_pid(
+          ag.pid_turn, ag.pid_speed, out["pred_wp"], ego.speed, cfg)
 
     # --- stuck -> creep recovery, blocked by returns in the LiDAR
     # safety box directly ahead ---
@@ -257,6 +286,14 @@ def make_transfuser_policy(model: LidarCenterNet, params,
                         torch.where((force > 0) & obstructed, 1.0, brake))
     stuck = torch.where(creeping, 0, stuck)
 
+    stop_box, stop_valid, clear_stop = ag.stop_box, ag.stop_box_valid, \
+        ag.clear_stop
+    if stop_control and "pred_bb" in out:
+      stop_box, stop_valid, clear_stop, must_stop = _stop_controller(
+          cfg, out["pred_bb"], ag, pos_f, yaw_f, ego.speed)
+      throttle = torch.where(must_stop, 0.0, throttle)
+      brake = torch.where(must_stop, 1.0, brake)
+
     control = Control(steer=steer, throttle=throttle, brake=brake)
     new_pose = torch.stack([pos_f[:, 0], pos_f[:, 1], yaw_f], -1)
     new_ag = ag.replace(
@@ -268,7 +305,52 @@ def make_transfuser_policy(model: LidarCenterNet, params,
                                     ag.prev_lidar_valid[:, :-1]], 1),
         prev_pose=torch.cat([new_pose[:, None], ag.prev_pose[:, :-1]], 1),
         stuck_count=stuck.to(torch.int32),
-        force_move=force.to(torch.int32))
+        force_move=force.to(torch.int32),
+        stop_box=stop_box, stop_box_valid=stop_valid,
+        clear_stop=clear_stop.to(torch.int32))
     return control, {"agent": new_ag}
 
   return policy
+
+
+def _stop_controller(cfg: GlobalConfig, pred_bb: dict, ag: SensorAgentState,
+                     pos_f, yaw_f, speed):
+  """The detected-stop-sign controller (sensor_agent.py:617-657): carry
+  the tracked box into the current ego frame by the filtered pose delta,
+  adopt the nearest fresh class-3 detection (score > 0.3) when none is
+  tracked, drop it beyond the observable range, and when it overlaps the
+  ego box require a full stop, then a 100-tick cooldown. Returns
+  (stop_box, valid, clear_stop, must_stop)."""
+  s = cfg.sensor
+  ppm_grid = pred_bb["heatmap"].shape[1] / (s.max_y - s.min_y)
+  det = topk_decode(pred_bb, ppm=ppm_grid, k=20, min_x=s.min_x,
+                    min_y=s.min_y)
+  stop_box, stop_valid = ag.stop_box, ag.stop_box_valid
+  prev_p = ag.prev_pose[:, 0]
+  bw = geo.ego_to_world(stop_box[:, :2], prev_p[:, :2], prev_p[:, 2])
+  bcur = geo.world_to_ego(bw, pos_f, yaw_f)
+  byaw = geo.normalize_angle(stop_box[:, 4] + prev_p[:, 2] - yaw_f)
+  stop_box = torch.cat([bcur, stop_box[:, 2:4], byaw[:, None]], -1)
+  is_stop = (det["cls"] == 3) & (det["score"] > 0.3)
+  d2 = torch.where(is_stop, det["x"] ** 2 + det["y"] ** 2, torch.inf)
+  bi = torch.argmin(d2, -1)[:, None]
+  take = lambda a: torch.gather(a, 1, bi)[:, 0]
+  fresh = torch.stack([take(det["x"]), take(det["y"]), take(det["l"]) / 2,
+                       take(det["w"]) / 2, take(det["yaw"])], -1)
+  adopt = torch.isfinite(take(d2)) & ~stop_valid
+  stop_box = torch.where(adopt[:, None], fresh, stop_box)
+  stop_valid = (stop_valid | adopt) & \
+      (torch.linalg.vector_norm(stop_box[:, :2], dim=-1) < s.max_x)
+  ego_e = const([cfg.sim.ego_extent_x, cfg.sim.ego_extent_y], pos_f.device)
+  inter = geo.obb_intersect(
+      torch.zeros_like(stop_box[:, None, :2]),
+      torch.zeros_like(stop_box[:, None, 4]), ego_e[None, None],
+      stop_box[:, None, :2], stop_box[:, None, 4],
+      torch.clamp(stop_box[:, None, 2:4], min=0.5))[:, 0]
+  active = stop_valid & inter & (ag.clear_stop <= 0)
+  must_stop = active & (speed > 0.01)
+  cleared = active & (speed <= 0.01)
+  stop_valid = stop_valid & ~cleared
+  clear_stop = torch.where(cleared, 100,
+                           torch.clamp(ag.clear_stop - 1, min=0))
+  return stop_box, stop_valid, clear_stop, must_stop

@@ -91,19 +91,28 @@ class GRUCell(nn.Module):
 class GRUWaypointsPredictorInterFuser(nn.Module):
   """GRU over query tokens with the target-point embedding as the initial
   hidden state, then per-step decode + cumsum. Runs in float32 even under
-  a bf16 model (bf16-rounded weights, f32 math), as the JAX head does."""
+  a bf16 model (bf16-rounded weights, f32 math), as the JAX head does.
 
-  def __init__(self, in_features: int, pred_len: int, hidden_size: int = 64):
+  target_point_size=0 (PlanT's checkpoint decoder) has no ``encoder``: the
+  initial hidden state is zeros and the target point is ignored."""
+
+  def __init__(self, in_features: int, pred_len: int, hidden_size: int = 64,
+               target_point_size: int = 2):
     super().__init__()
     self.pred_len = pred_len
-    self.encoder = Linear(2, hidden_size)
+    self.hidden_size = hidden_size
+    if target_point_size > 0:
+      self.encoder = Linear(target_point_size, hidden_size)
     self.gru = GRUCell(in_features, hidden_size)
     self.decoder = Linear(hidden_size, 2)
 
-  def forward(self, tokens, target_point):
+  def forward(self, tokens, target_point=None):
     """tokens [B,T,C], target_point [B,2] -> [B,T,2] float32."""
     tokens = tokens.float()
-    h = self.encoder(target_point.float())
+    if hasattr(self, "encoder"):
+      h = self.encoder(target_point.float())
+    else:
+      h = tokens.new_zeros((tokens.shape[0], self.hidden_size))
     hs = []
     for t in range(tokens.shape[1]):
       h = self.gru(h, tokens[:, t])

@@ -139,8 +139,6 @@ class LidarCenterNet(nn.Module):
 
   def __init__(self, c: TransfuserConfig):
     super().__init__()
-    if c.use_wp_gru:
-      raise NotImplementedError("use_wp_gru is not ported yet")
     self.cfg = c
     lspec = arch_spec(c.lidar_arch)
     ispec = arch_spec(c.image_arch)
@@ -157,6 +155,15 @@ class LidarCenterNet(nn.Module):
         c.d_model, c.checkpoint_len, c.gru_hidden)
     self.target_speed_fc1 = Linear(c.d_model, c.d_model)
     self.target_speed_head = Linear(c.d_model, c.target_speed_bins)
+    if c.use_wp_gru:
+      # waypoints: a decoder of their own over the same memory, with
+      # pred_len queries, then a GRU with the target point as its initial
+      # hidden state (model.py:151-175)
+      self.join_wp = TransformerDecoderJoin(c.d_model, c.n_decoder_heads,
+                                            c.n_decoder_layers,
+                                            num_queries=c.pred_len)
+      self.wp_decoder = GRUWaypointsPredictorInterFuser(
+          c.d_model, c.pred_len, c.gru_hidden)
     cimg = ispec["widths"][-1]
     if c.use_semantic:
       self.semantic_decoder = PerspectiveDecoder(cimg, c.num_semantic)
@@ -195,6 +202,8 @@ class LidarCenterNet(nn.Module):
                                                      target_point)
     ts_h = torch.relu(self.target_speed_fc1(speed_token))
     out["pred_target_speed"] = self.target_speed_head(ts_h)
+    if c.use_wp_gru:
+      out["pred_wp"] = self.wp_decoder(self.join_wp(mem), target_point)
     if c.use_semantic:
       out["pred_semantic"] = _nhwc(self.semantic_decoder(img_feat))
     if c.use_depth:

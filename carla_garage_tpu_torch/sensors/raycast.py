@@ -6,7 +6,9 @@ per-point semantics), extruded actor boxes (vehicles, walkers) and
 traffic-light poles. Box intersections run in the ``raycast_boxes`` CUDA
 kernel after ``cull_boxes`` keeps the 48 nearest boxes per episode. The
 JAX package's dense path (every ray against every box, lights in three
-passes), which it takes on the CPU, is not ported yet.
+passes) is its CPU path around its kernel; here the kernel's plain
+version, ``raycast_boxes_plain``, fills that role, so the dense path has
+no counterpart.
 
 Semantic ids follow the reference camera palette: 0 unlabeled/sky,
 1 vehicle, 2 road, 3 traffic light, 4 pedestrian, 5 road line, 6 sidewalk.

@@ -58,7 +58,42 @@ Phases, each of which fails the run if it fails:
   10. DAgger datagen (slice 4's main path, second half): that policy on
      that scene through ``collect_dagger_frames``, one chunk of 20 frames
      (100 ticks); no host sync in a tick, every frame leaf finite;
-  11. the output: every tick-state leaf finite, ticks advanced.
+  11. PlanT reference: 20 ticks of the micro PlanT policy (direct, creep)
+     on phase 8's scene at B=2, on the card and on the CPU from the same
+     weights and control-loss draws, every state leaf; then one micro
+     PlanT train step (batch 32, float32, TF32 off) on both devices: the
+     loss, every aux loss and every gradient;
+  12. PlanT datagen and dataset (slice 5, ``scripts/train_plant.py``'s
+     recipe): the expert drives phase 9's scene for 100 frames in chunks
+     of 20, the quality gate keeps clean episodes, then
+     ``build_plant_dataset`` at ``PlanTConfig()``; it fails if the train
+     split holds fewer than one batch of 512;
+  13. PlanT training at full width: ``PlanTConfig()`` (bert-medium, 30
+     objects, 20 route points), float32, batch 512, AdamW 3e-4 with the
+     multistep schedule, estimated speed-class weights, velocity dropout
+     0.15, set up by ``plant_trainer`` as ``train_plant`` sets itself up;
+     a warm-up step, then timed steps with the launch counts set to 0 just
+     before and read just after; device kernels a step, peak memory,
+     validation losses; no host sync in an epoch's steps in a row, its
+     first included; then ``train_plant`` itself for 11 steps, timed with
+     its set-up and validation;
+  14. PlanT closed-loop eval and DAgger: the trained model at the eval
+     suite's point (direct, brake threshold 0.33, creep) drives phase 9's
+     scene through ``rollout_chunked`` (512 ticks in chunks of 256), then
+     scores -> records; no host sync in a tick, no kernel launch; then
+     ``relabel_with_plant`` over the dataset, and one DAgger chunk of 20
+     frames with PlanT driving, built into a dataset with waypoint weight
+     0;
+  15. the sensor agent's operating points on the committed scene, each
+     with the full-width bf16 TransFuser++: ``stop_control``,
+     ``jpeg_quality=95``, ``seq_len=2``, ``map_track`` and
+     ``direct=False`` with ``use_wp_gru``; warm-up ticks, then timed ticks
+     with 2 launches of the raycast kernel a tick; for ``stop_control`` the
+     timed ticks add a class-3 peak 1 m ahead of the ego to the model's
+     heatmap logits, and the controller must track it and brake; then
+     ``jpeg_artifacts`` and ``topk_decode`` on the card against the CPU
+     on one tick's inputs;
+  16. the output: every tick-state leaf finite, ticks advanced.
 
 Every phase prints its wall time. The last two lines of standard output
 are the ``kernels`` JSON and ``{"ok": true, "device": ...}``. A kernel's
@@ -93,6 +128,13 @@ EVAL_CHUNK = 256                  # ticks in chunks of 512
 SYNC_CHECK_CHUNKS = 2             # the eval's host-sync check: 2 chunks
 SYNC_CHECK_CHUNK = 8              # of 8 ticks
 DAGGER_FRAMES = 20                # one chunk of the DAgger collector
+PLANT_REF_TICKS = 20              # PlanT reference ticks at B=2
+PLANT_FRAMES = 100                # PlanT datagen: recorded frames,
+PLANT_CHUNK = 20                  # collected 20 at a time as the script
+PLANT_BATCH = 512                 # the r5 recipe's --batch
+PLANT_STEPS = 10                  # timed full-width PlanT steps
+OP_WARMUP, OP_TICKS = 3, 4        # operating points: warm-up, timed ticks
+STOP_AHEAD_M = 1.0                # stop_control: the class-3 peak ahead
 
 
 def log(*a):
@@ -368,6 +410,27 @@ def expert_reference(cfg, maps, lanes, scene, state, n_frames=3):
       f"{worst:.3g} (bar 1e-4 abs + 1e-4 rel), ints and bools equal")
 
 
+def grads_close(g_g, g_c, what):
+  """Gradients on the card against the CPU's: the bars of
+  tests/test_torch_port_train.py (port vs JAX), 1e-3 of the global norm
+  and 2e-2 of a tensor's largest entry; attention key biases have a zero
+  gradient in exact arithmetic. Returns (error of the norm, worst
+  tensor)."""
+  gmax = max(float(g.abs().max()) for g in g_c.values())
+  norm = sum(float((g ** 2).sum()) for g in g_c.values()) ** 0.5
+  diff = sum(float(((g_g[n] - g_c[n]) ** 2).sum()) for n in g_c) ** 0.5
+  worst = 0.0
+  for n, g in g_c.items():
+    if n.endswith("key.bias"):
+      assert float(g_g[n].abs().max()) < 1e-5 * gmax, (what, n)
+      continue
+    err = float((g_g[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+    worst = max(worst, err)
+    assert err < 2e-2, (what, n, err)
+  assert diff < 1e-3 * norm, (what, diff / norm)
+  return diff / norm, worst
+
+
 def small_train_reference(cfg, maps, lanes, scene, state):
   """One train step at B=2 (micro model, reduced sensor sizes, two
   micro-batches, float32) on the card and on the CPU. Frames: 10 recorded
@@ -417,25 +480,11 @@ def small_train_reference(cfg, maps, lanes, scene, state):
     torch.testing.assert_close(aux_g[k], aux_c[k], rtol=2e-4, atol=1e-5,
                                msg=k)
     worst_aux = max(worst_aux, float((aux_g[k] - aux_c[k]).abs()))
-  # gradients: the bars of tests/test_torch_port_train.py (port vs JAX):
-  # 1e-3 of the global norm, 2e-2 of a tensor's largest entry; attention
-  # key biases have a zero gradient in exact arithmetic
-  gmax = max(float(g.abs().max()) for g in g_c.values())
-  norm = sum(float((g ** 2).sum()) for g in g_c.values()) ** 0.5
-  diff = sum(float(((g_g[n] - g_c[n]) ** 2).sum()) for n in g_c) ** 0.5
-  worst = 0.0
-  for n, g in g_c.items():
-    if n.endswith("key.bias"):
-      assert float(g_g[n].abs().max()) < 1e-5 * gmax, n
-      continue
-    err = float((g_g[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
-    worst = max(worst, err)
-    assert err < 2e-2, (n, err)
-  assert diff < 1e-3 * norm, diff / norm
+  err, worst = grads_close(g_g, g_c, "train step")
   log(f"  card vs CPU, one train step at B=2: loss "
       f"{float(aux_c['loss']):.6f} vs {float(aux_g['loss']):.6f}, aux max "
       f"|diff| {worst_aux:.3g}; gradients {len(g_c)} tensors, error "
-      f"{diff / norm:.3g} of the norm, {worst:.3g} of a tensor at worst")
+      f"{err:.3g} of the norm, {worst:.3g} of a tensor at worst")
 
 
 def sensor_tick(cfg, maps, lanes, scene, state, kernels, args, card):
@@ -717,11 +766,10 @@ def scenario_counts(scene, state) -> dict:
           if name.isupper() and name != "NONE"}
 
 
-def scenario_reference(cfg):
-  """60 expert ticks on a B=2 scenario scene of the port's builder, with a
-  hand-made CONTROL_LOSS row a few metres ahead of the ego's start, on the
-  card and on the CPU from the same draws."""
-  from carla_garage_tpu_torch.sim.episode import sim_step
+def scenario_scene_b2(cfg):
+  """A B=2 scenario scene of the port's builder, on the host, with a
+  hand-made CONTROL_LOSS row a few metres ahead of the ego's start.
+  Returns (maps, lanes, scene, state)."""
   from carla_garage_tpu_torch.sim.scenarios import ScenarioType
   from carla_garage_tpu_torch.sim.scene_builder import make_town_batch
 
@@ -746,7 +794,17 @@ def scenario_reference(cfg):
       trigger_dist=set_row(sp.trigger_dist, 10.0),
       duration=set_row(sp.duration, 40), magnitude=set_row(sp.magnitude, 0.1),
       valid=set_row(sp.valid, True))
-  scene = scene.replace(scenarios=sp)
+  return maps, lanes, scene.replace(scenarios=sp), state
+
+
+def scenario_reference(cfg):
+  """60 expert ticks on the B=2 scenario scene, on the card and on the CPU
+  from the same draws."""
+  from carla_garage_tpu_torch.sim.episode import sim_step
+
+  B = 2
+  maps, lanes, scene, state = scenario_scene_b2(cfg)
+  K = scene.scenarios.kind.shape[1]
   gen = torch.Generator().manual_seed(6)
   draws = [{"steer_noise": torch.randn((B,), generator=gen),
             "control_loss": torch.randn((B, K), generator=gen)}
@@ -953,6 +1011,481 @@ def dagger(cfg, maps, lanes, scene, start, policy, kernels, card):
   return launches, n_ticks
 
 
+def device_kernels(fn):
+  """(device busy ms, kernels, memsets and copies) of one call of fn, from
+  torch.profiler."""
+  from torch.profiler import ProfilerActivity, profile
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  on_card = [e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+  return (sum(e.self_device_time_total for e in on_card) / 1e3,
+          sum(e.count for e in on_card))
+
+
+def plant_reference(cfg):
+  """The micro PlanT policy at B=2 on phase 8's scene for 20 ticks, on the
+  card and on the CPU from the same weights and control-loss draws; then
+  one micro train step at batch 32 on both devices, from the same weights
+  and batch (32 samples of 30 expert frames recorded on the CPU)."""
+  from carla_garage_tpu_torch.agents.plant_agent import (make_plant_policy,
+                                                         plant_agent_reset)
+  from carla_garage_tpu_torch.models.plant import PlanT, micro_plant
+  from carla_garage_tpu_torch.sim.datagen import collect_expert_frames
+  from carla_garage_tpu_torch.sim.episode import sim_step
+  from carla_garage_tpu_torch.train.plant_train import (BATCH_KEYS,
+                                                        build_plant_dataset,
+                                                        plant_loss)
+
+  B = 2
+  maps, lanes, scene, state = scenario_scene_b2(cfg)
+  K = scene.scenarios.kind.shape[1]
+  pcfg = micro_plant()
+  torch.manual_seed(7)
+  weights = PlanT(pcfg).state_dict()
+  gen = torch.Generator().manual_seed(8)
+  draws = [{"control_loss": torch.randn((B, K), generator=gen)}
+           for _ in range(PLANT_REF_TICKS)]
+  runs = {}
+  for dev in ("cpu", "cuda"):
+    m = PlanT(pcfg).to(dev)
+    m.load_state_dict(weights)
+    policy = make_plant_policy(m, None, pcfg, direct=True, creep=True)
+    mp, ln, sc, st = (x.to(dev) for x in (maps, lanes, scene, state))
+    st = st.replace(agent=plant_agent_reset(cfg, B, device=dev))
+    for d in draws:
+      st = sim_step(cfg, mp, ln, sc, st, policy,
+                    draws={k: v.to(dev) for k, v in d.items()})
+    runs[dev] = st
+  torch.cuda.synchronize()
+  worst = leaves_close(runs["cuda"], runs["cpu"], "PlanT, card vs CPU")
+  log(f"  card vs CPU, {PLANT_REF_TICKS} PlanT ticks (micro, direct, creep) "
+      f"with scenarios at B={B}: max |diff| of float leaves {worst:.3g} "
+      f"(bar 1e-4 abs + 1e-4 rel), ints and bools equal; dense route "
+      f"index {runs['cpu'].agent.planner_dense.idx.tolist()}")
+
+  _, frames = collect_expert_frames(cfg, maps, lanes, scene, state, 30,
+                                    generator=torch.Generator().manual_seed(9))
+  ds = build_plant_dataset(cfg, pcfg, frames, scene)
+  assert len(ds) >= 32, len(ds)
+  batch = {k: getattr(ds, k)[:32] for k in BATCH_KEYS
+           if getattr(ds, k) is not None}
+  runs = {}
+  for dev in ("cpu", "cuda"):
+    m = PlanT(pcfg).to(dev)
+    m.load_state_dict(weights)
+    loss, aux = plant_loss(m, {k: v.to(dev) for k, v in batch.items()})
+    loss.backward()
+    runs[dev] = ({k: v.detach().cpu() for k, v in aux.items()},
+                 {n: p.grad.cpu() for n, p in m.named_parameters()})
+  (aux_g, g_g), (aux_c, g_c) = runs["cuda"], runs["cpu"]
+  assert set(aux_g) == set(aux_c) and len(aux_c) == 5, sorted(aux_c)
+  worst_aux = 0.0
+  for k in aux_c:
+    torch.testing.assert_close(aux_g[k], aux_c[k], rtol=2e-4, atol=1e-5,
+                               msg=k)
+    worst_aux = max(worst_aux, float((aux_g[k] - aux_c[k]).abs()))
+  err, worst = grads_close(g_g, g_c, "PlanT step")
+  log(f"  card vs CPU, one micro PlanT step at batch 32 ({len(ds)} samples "
+      f"recorded): loss {float(aux_c['loss']):.6f} vs "
+      f"{float(aux_g['loss']):.6f}, aux max |diff| {worst_aux:.3g}; "
+      f"gradients {len(g_c)} tensors, error {err:.3g} of the norm, "
+      f"{worst:.3g} of a tensor at worst")
+
+
+def plant_datagen(cfg, maps, lanes, scene, start, card):
+  """The expert on phase 9's scene from its start: PLANT_FRAMES frames in
+  chunks of PLANT_CHUNK, the quality gate, then the dataset at
+  PlanTConfig(). Returns the dataset."""
+  from carla_garage_tpu_torch.models.plant import PlanTConfig
+  from carla_garage_tpu_torch.sim.datagen import (SAVE_FREQ,
+                                                  collect_expert_frames)
+  from carla_garage_tpu_torch.structs import tree_map
+  from carla_garage_tpu_torch.train.plant_train import build_plant_dataset
+
+  B = start.tick.shape[0]
+  gen = torch.Generator(device="cuda").manual_seed(10)
+  st, parts = start, []
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(PLANT_FRAMES // PLANT_CHUNK):
+    st, fr = collect_expert_frames(cfg, maps, lanes, scene, st, PLANT_CHUNK,
+                                   generator=gen)
+    parts.append(fr)
+  frames = tree_map(lambda *xs: torch.cat(xs), *parts)
+  torch.cuda.synchronize()
+  dt = time.perf_counter() - t0
+  n_ticks = PLANT_FRAMES * SAVE_FREQ
+  # the quality gate of scripts/train_plant.py: clean episodes only
+  cr = st.criteria
+  clean = (cr.n_collision_vehicle == 0) & (cr.n_collision_walker == 0) & \
+      (cr.n_collision_static == 0) & (cr.n_red_light == 0) & ~cr.blocked
+  frames = frames.replace(alive=frames.alive & clean[None])
+  t0 = time.perf_counter()
+  ds = build_plant_dataset(cfg, PlanTConfig(), frames, scene)
+  torch.cuda.synchronize()
+  dt_ds = time.perf_counter() - t0
+  n_train = len(ds) - int(0.1 * len(ds))
+  log(f"  {PLANT_FRAMES} frames ({n_ticks} ticks, chunks of {PLANT_CHUNK}) "
+      f"at B={B}: {1e3 * dt / n_ticks:.2f} ms/tick ({card}); clean "
+      f"episodes {int(clean.sum())}/{B}")
+  log(f"  dataset: {len(ds)} samples ({n_train} to train), built in "
+      f"{dt_ds:.2f} s; speed classes "
+      f"{torch.bincount(ds.speed_label.long(), minlength=4).tolist()}; "
+      f"object slots filled {float((ds.boxes.abs().sum(-1) > 0).float().mean()):.3f}")
+  assert n_train >= PLANT_BATCH, \
+      f"{n_train} training samples, fewer than one batch of {PLANT_BATCH}"
+  return ds
+
+
+def plant_train_full(cfg, ds, kernels, card):
+  """PlanTConfig() training in float32 at batch PLANT_BATCH on the dataset,
+  through ``plant_trainer``, the set-up and step that ``train_plant`` runs;
+  then ``train_plant`` itself. Returns (the trained model, launches in the
+  timed steps)."""
+  from carla_garage_tpu_torch.models.plant import PlanTConfig
+  from carla_garage_tpu_torch.train.plant_train import (
+      estimate_speed_weights, plant_trainer, train_plant)
+
+  pcfg = PlanTConfig()
+  kw = dict(batch_size=PLANT_BATCH, lr=3e-4, schedule="multistep",
+            estimate_weights=True)
+  # one epoch's steps: the sync check runs that many in a row, so that it
+  # takes in the step that draws an epoch's order and copies it over
+  per_epoch = (len(ds) - int(0.1 * len(ds))) // PLANT_BATCH
+  n_steps = 1 + PLANT_STEPS + per_epoch + 1
+  tr = plant_trainer(cfg, pcfg, ds, n_steps, **kw)
+  n_params = sum(p.numel() for p in tr.model.parameters())
+  log(f"  PlanTConfig(): {n_params / 1e6:.2f}M parameters, "
+      f"{pcfg.max_tokens} tokens; {n_steps} steps, {per_epoch} an epoch; "
+      f"speed-class weights "
+      f"{[round(w, 4) for w in estimate_speed_weights(ds)]}")
+  aux = tr.step()
+  torch.cuda.synchronize()
+  log(f"  warm-up step: loss {float(aux['loss']):.4f}")
+  for k in kernels.values():
+    k.launches = 0
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  for _ in range(PLANT_STEPS):
+    aux = tr.step()
+  torch.cuda.synchronize()
+  dt = time.perf_counter() - t0
+  launches = {n: k.launches for n, k in kernels.items()}
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  log(f"  {PLANT_STEPS} steps of {PLANT_BATCH}: {1e3 * dt / PLANT_STEPS:.2f} "
+      f"ms/step, {PLANT_BATCH * PLANT_STEPS / dt:.1f} samples/s ({card}); "
+      f"peak memory {peak_gb:.2f} GB")
+  log(f"  launches in the timed steps: {launches}")
+  assert launches == {"raycast_boxes": 0, "fill_boxes_bev": 0}, launches
+  bad = [k for k, v in aux.items() if not bool(torch.isfinite(v))]
+  assert not bad, bad
+  log("  aux of the last step: " + ", ".join(
+      f"{k[5:] if k.startswith('loss_') else k} {float(v):.4f}"
+      for k, v in aux.items()))
+  syncs = host_syncs(lambda: [tr.step() for _ in range(per_epoch)])
+  log(f"  host syncs in {per_epoch} train steps in a row (batches drawn, "
+      f"one epoch's start included): {len(syncs)} {syncs}")
+  assert not syncs, "a PlanT train step must not wait for the device"
+  busy, n_k = device_kernels(tr.step)
+  log(f"  profiled step: device busy {busy:.2f} ms, {n_k} kernels, memsets "
+      f"and copies")
+  val = tr.validate()
+  assert val and all(np.isfinite(v) for v in val.values()), val
+  log(f"  validation ({int(0.1 * len(ds))} samples): " + ", ".join(
+      f"{k} {v:.4f}" for k, v in val.items()))
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  _, hist = train_plant(cfg, pcfg, ds, steps=1 + PLANT_STEPS,
+                        log_every=PLANT_STEPS + 1, **kw)
+  dt = time.perf_counter() - t0
+  assert len(hist) == 2 and np.isfinite(hist[-1]["loss"]) and \
+      "val_loss" in hist[-1], hist
+  log(f"  train_plant, {1 + PLANT_STEPS} steps from seed 0: loss "
+      f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, val_loss "
+      f"{hist[-1]['val_loss']:.4f} ({dt:.2f} s with its set-up and "
+      f"validation)")
+  return tr.model, launches
+
+
+def plant_eval_dagger(cfg, maps, lanes, scene, start, model, ds, kernels,
+                      card):
+  """The trained PlanT at the eval suite's operating point on phase 9's
+  scene, then the relabelling of the dataset and one DAgger chunk.
+  Returns (eval launches, eval ticks, DAgger launches, DAgger ticks)."""
+  from carla_garage_tpu_torch.agents.plant_agent import (make_plant_policy,
+                                                         plant_agent_reset)
+  from carla_garage_tpu_torch.eval import benchmark
+  from carla_garage_tpu_torch.models.plant import PlanTConfig
+  from carla_garage_tpu_torch.sim import episode
+  from carla_garage_tpu_torch.sim.datagen import (SAVE_FREQ,
+                                                  collect_dagger_frames)
+  from carla_garage_tpu_torch.structs import tree_items
+  from carla_garage_tpu_torch.train.plant_train import (build_plant_dataset,
+                                                        relabel_with_plant)
+
+  pcfg = PlanTConfig()
+  B = start.tick.shape[0]
+  policy = make_plant_policy(model, None, pcfg, direct=True,
+                             brake_threshold=0.33, creep=True)
+  st0 = start.replace(agent=plant_agent_reset(cfg, B))
+  gen = torch.Generator(device="cuda").manual_seed(11)
+  chunks = []
+  real_rollout = episode.rollout
+
+  def counted(*a, **kw):
+    chunks.append(1)
+    return real_rollout(*a, **kw)
+
+  def chunked(n_ticks, chunk, check_syncs=False):
+    out = []
+    run = lambda: out.append(episode.rollout_chunked(
+        cfg, maps, lanes, scene, st0, n_ticks, chunk=chunk, policy=policy,
+        generator=gen))
+    chunks.clear()
+    episode.rollout = counted
+    try:
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      syncs = host_syncs(run) if check_syncs else run()
+      torch.cuda.synchronize()
+      return out[0], len(chunks), time.perf_counter() - t0, syncs
+    finally:
+      episode.rollout = real_rollout
+
+  for k in kernels.values():
+    k.launches = 0
+  final, n_chunks, dt, _ = chunked(EVAL_TICKS, EVAL_CHUNK)
+  launches = {n: k.launches for n, k in kernels.items()}
+  ticks = n_chunks * EVAL_CHUNK
+  log(f"  {ticks} PlanT ticks ({n_chunks} chunks of {EVAL_CHUNK}) at B={B}:"
+      f" {1e3 * dt / ticks:.2f} ms/tick, {B * ticks / dt:.1f} env-steps/s  "
+      f"({card})")
+  log(f"  launches in the rollout: {launches}")
+  assert launches == {"raycast_boxes": 0, "fill_boxes_bev": 0}, launches
+  n = SYNC_CHECK_CHUNKS * SYNC_CHECK_CHUNK
+  _, n_chunks, _, syncs = chunked(n, SYNC_CHECK_CHUNK, check_syncs=True)
+  tick_syncs = host_syncs(lambda: episode.sim_step(
+      cfg, maps, lanes, scene, final, policy, generator=gen))
+  log(f"  host syncs in {n} chunked ticks: {len(syncs)} {syncs}; in one "
+      f"PlanT tick: {len(tick_syncs)} {tick_syncs}")
+  assert n_chunks == SYNC_CHECK_CHUNKS and len(syncs) == n_chunks and \
+      all("episode.py" in x for x in syncs), \
+      "one host sync a chunk, the done check"
+  assert not tick_syncs, "a PlanT tick must not wait for the device"
+  busy, n_k = device_kernels(lambda: episode.rollout(
+      cfg, maps, lanes, scene, final, 2, policy, generator=gen))
+  log(f"  profiled PlanT ticks: device busy {busy / 2:.2f} ms, {n_k / 2:.0f} "
+      f"kernels, memsets and copies a tick")
+  for path, x in tree_items(final):
+    if x.dtype.is_floating_point:
+      assert bool(torch.isfinite(x).all()), path
+  records = benchmark._records(cfg, scene, final,
+                               [f"synth_{i}" for i in range(B)], "SynthTown")
+  agg = benchmark.aggregate(records)
+  log(f"  scores: DS {agg['driving_score']:.3f}, RC "
+      f"{agg['route_completion']:.3f}, IS {agg['infraction_score']:.3f} over "
+      f"{agg['num_routes']} routes; statuses "
+      f"{sorted({r['status'] for r in records})}; scenario rows triggered "
+      f"{scenario_counts(scene, final)}")
+
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  rl = relabel_with_plant(model, ds)
+  torch.cuda.synchronize()
+  changed = float((rl.speed_label != ds.speed_label).float().mean())
+  log(f"  relabel_with_plant over {len(ds)} samples in "
+      f"{time.perf_counter() - t0:.2f} s: speed labels changed "
+      f"{changed:.3f}, waypoint labels finite "
+      f"{bool(torch.isfinite(rl.wp_label).all())}")
+  assert bool(torch.isfinite(rl.wp_label).all())
+
+  n_ticks = DAGGER_FRAMES * SAVE_FREQ
+  for k in kernels.values():
+    k.launches = 0
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  _, frames = collect_dagger_frames(cfg, maps, lanes, scene, st0, policy,
+                                    DAGGER_FRAMES, generator=gen)
+  torch.cuda.synchronize()
+  dt = time.perf_counter() - t0
+  d_launches = {n: k.launches for n, k in kernels.items()}
+  assert d_launches == {"raycast_boxes": 0, "fill_boxes_bev": 0}, d_launches
+  for path, x in tree_items(frames):
+    assert x.shape[:2] == (DAGGER_FRAMES, B), (path, x.shape)
+    if x.dtype.is_floating_point:
+      assert bool(torch.isfinite(x).all()), path
+  dds = build_plant_dataset(cfg, pcfg, frames, scene)
+  dds.wp_weight = torch.zeros(len(dds), device=dds.boxes.device)
+  log(f"  DAgger: {DAGGER_FRAMES} frames ({n_ticks} ticks) with PlanT "
+      f"driving at B={B}: {1e3 * dt / n_ticks:.2f} ms/tick ({card}); "
+      f"launches {d_launches}; dataset {len(dds)} samples, waypoint weight "
+      f"0")
+  return launches, ticks, d_launches, n_ticks
+
+
+class StopSignAhead(torch.nn.Module):
+  """`model` with a class-3 (stop sign) peak of logit +20 added to its
+  CenterNet heatmap STOP_AHEAD_M ahead of the ego, where the CPU test's
+  scripted model places one: seeded random weights detect none."""
+
+  def __init__(self, model, cfg):
+    super().__init__()
+    self.model = model
+    self.sensor = cfg.sensor
+
+  def forward(self, *args):
+    out = self.model(*args)
+    heat = out["pred_bb"]["heatmap"]                 # [B,h,w,C] logits
+    s = self.sensor
+    cy = int(-s.min_y * heat.shape[1] / (s.max_y - s.min_y))
+    cx = int((STOP_AHEAD_M - s.min_x) * heat.shape[2] / (s.max_x - s.min_x))
+    peak = torch.zeros_like(heat)
+    peak[:, cy, cx, 3] = 20.0
+    return dict(out, pred_bb=dict(out["pred_bb"], heatmap=heat + peak))
+
+
+def op_points(cfg, maps, lanes, scene, state0, kernels, card):
+  """The sensor agent's operating points at full width on the committed
+  scene, then jpeg_artifacts and topk_decode on the card against the CPU
+  on one tick's inputs. Returns (launches in the timed ticks, ticks)."""
+  from carla_garage_tpu_torch.agents import sensor_agent as sa
+  from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
+                                                        TransfuserConfig)
+  from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
+  from carla_garage_tpu_torch.sensors.lidar import lidar_ray_grid
+  from carla_garage_tpu_torch.sim.episode import rollout
+
+  B = state0.tick.shape[0]
+  cam = camera_ray_grid(cfg)
+  lid_f, lid_r = lidar_ray_grid(cfg, half=0), lidar_ray_grid(cfg, half=1)
+  n_lidar = lid_f.shape[0] * lid_f.shape[1]
+  captured = {}
+  real_jpeg, real_topk = sa.jpeg_artifacts, sa.topk_decode
+  real_stop = sa._stop_controller
+
+  def rec_jpeg(rgb, quality):
+    captured.setdefault("jpeg", (rgb.clone(), quality))
+    return real_jpeg(rgb, quality=quality)
+
+  def rec_topk(preds, **kw):
+    captured.setdefault("topk", ({k: v.clone() for k, v in preds.items()},
+                                 kw))
+    return real_topk(preds, **kw)
+
+  options = (("stop_control", dict(stop_control=True), {}, 1),
+             ("jpeg_quality=95", dict(jpeg_quality=95), {}, 1),
+             ("seq_len=2", {}, dict(lidar_channels=4), 2),
+             ("map_track", dict(map_track=True), {}, 1),
+             ("direct=False, use_wp_gru", dict(direct=False),
+              dict(use_wp_gru=True), 1))
+  total = {n: 0 for n in kernels}
+  for name, policy_kw, model_kw, seq_len in options:
+    tcfg = TransfuserConfig(**model_kw)
+    torch.manual_seed(0)
+    model = LidarCenterNet(tcfg).cuda()
+    policy = sa.make_transfuser_policy(model, None, tcfg, cam, lid_f, lid_r,
+                                       bf16=True, **{"direct": True,
+                                                     **policy_kw})
+    st = state0.replace(agent=sa.sensor_agent_reset(cfg, B, n_lidar,
+                                                    seq_len=seq_len))
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    sa.jpeg_artifacts, sa.topk_decode = rec_jpeg, rec_topk
+    try:
+      st = rollout(cfg, maps, lanes, scene, st, OP_WARMUP, policy,
+                   generator=gen)
+    finally:
+      sa.jpeg_artifacts, sa.topk_decode = real_jpeg, real_topk
+    must_stop, speed0 = [], st.ego.speed.clone()
+    if policy_kw.get("stop_control"):
+      # the egos start at rest and would only clear a box seen at once:
+      # the peak comes with the timed ticks, once they are moving
+      policy = sa.make_transfuser_policy(StopSignAhead(model, cfg), None,
+                                         tcfg, cam, lid_f, lid_r, bf16=True,
+                                         direct=True, **policy_kw)
+
+      def rec_stop(*a):
+        out = real_stop(*a)
+        must_stop.append(out[3])
+        return out
+      sa._stop_controller = rec_stop
+    torch.cuda.synchronize()
+    for k in kernels.values():
+      k.launches = 0
+    t0 = time.perf_counter()
+    try:
+      st = rollout(cfg, maps, lanes, scene, st, OP_TICKS, policy,
+                   generator=gen)
+    finally:
+      sa._stop_controller = real_stop
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    assert launches == {"raycast_boxes": 2 * OP_TICKS, "fill_boxes_bev": 0}, \
+        (name, launches)
+    ctl = st.agent.prev_control
+    assert bool(torch.isfinite(ctl).all()), name
+    ag = st.agent
+    log(f"  {name}: {1e3 * dt / OP_TICKS:.2f} ms/tick at B={B} ({card}); "
+        f"controls finite; launches {launches}; brake share "
+        f"{float(ctl[:, 2].mean()):.3f}; tracked stop boxes "
+        f"{int(ag.stop_box_valid.sum())}; LiDAR buffer "
+        f"{tuple(ag.prev_lidar.shape[1:3])}")
+    if must_stop:
+      braked = torch.stack(must_stop).any(0)
+      moving = speed0 > 0.01
+      held = ag.stop_box_valid | (ag.clear_stop > 0)
+      last = must_stop[-1]
+      log(f"    stop sign {STOP_AHEAD_M} m ahead from the first timed tick: "
+          f"egos moving then {int(moving.sum())}/{B} (speed "
+          f"{float(speed0.min()):.3f}-{float(speed0.max()):.3f} m/s); "
+          f"braked by the controller {int(braked.sum())}/{B}; tracking the "
+          f"box or stopped in it and cooling down {int(held.sum())}/{B}; "
+          f"braking on the last tick {int(last.sum())}/{B}")
+      assert len(must_stop) == OP_TICKS and bool(moving.any()), \
+          "no ego moved after the warm-up ticks"
+      assert bool(braked[moving].all()), \
+          "every moving ego must brake for the stop sign in its box"
+      assert bool(held.all()), "every ego must track the box or clear it"
+      assert bool((ctl[last, 2] == 1.0).all() and
+                  (ctl[last, 1] == 0.0).all()), "a braking ego's control"
+    for n in total:
+      total[n] += launches[n]
+    del model, policy, st
+  assert set(captured) == {"jpeg", "topk"}, sorted(captured)
+
+  rgb, quality = captured["jpeg"]
+  out_g = real_jpeg(rgb, quality=quality).cpu()
+  out_c = real_jpeg(rgb.cpu(), quality=quality)
+  d = (out_g - out_c).abs()
+  share = float((d > 1e-4).float().mean())
+  log(f"  jpeg_artifacts card vs CPU on one tick's camera "
+      f"{tuple(rgb.shape)} at quality {quality}: max |diff| "
+      f"{float(d.max()):.3g}, share over 1e-4 {share:.3g} (bars: 1e-3 of "
+      f"the values, 0.05 absolute: a DCT coefficient that rounds the other "
+      f"way at a .5 boundary moves its block by up to ~0.02); changed the "
+      f"image by up to {float((out_c - rgb.cpu()).abs().max()):.3f}")
+  assert share < 1e-3 and float(d.max()) < 0.05
+  preds, kw = captured["topk"]
+  det_g = real_topk(preds, **kw)
+  det_c = real_topk({k: v.cpu() for k, v in preds.items()}, **kw)
+  worst = 0.0
+  for k, v in det_c.items():
+    g = det_g[k].cpu()
+    if v.dtype.is_floating_point:
+      torch.testing.assert_close(g, v, rtol=1e-5, atol=1e-5, msg=k)
+      worst = max(worst, float((g - v).abs().max()))
+    else:
+      assert torch.equal(g, v), k
+  log(f"  topk_decode card vs CPU on one tick's CenterNet outputs "
+      f"{tuple(preds['heatmap'].shape)}, k={kw['k']}: ints equal, floats "
+      f"max |diff| {worst:.3g} (bar 1e-5); best score "
+      f"{float(det_c['score'].max()):.4f}")
+  return total, len(options) * OP_TICKS
+
+
 def main():
   ap = argparse.ArgumentParser()
   ap.add_argument("--profile", metavar="PATH",
@@ -1092,6 +1625,27 @@ def main():
   clock.start("DAgger datagen on the card")
   dagger_launches, dagger_ticks = dagger(cfg, e_maps, e_lanes, e_scene,
                                          e_start, policy, kernels, card)
+  del policy
+
+  clock.start("PlanT reference, card vs CPU")
+  plant_reference(cfg)
+
+  clock.start("PlanT datagen and dataset on the card")
+  plant_ds = plant_datagen(cfg, e_maps, e_lanes, e_scene, e_start, card)
+
+  clock.start("PlanT training at full width")
+  plant_model, plant_train_launches = plant_train_full(cfg, plant_ds,
+                                                       kernels, card)
+
+  clock.start("PlanT closed-loop eval and DAgger")
+  (plant_eval_launches, plant_eval_ticks, plant_dagger_launches,
+   plant_dagger_ticks) = plant_eval_dagger(cfg, e_maps, e_lanes, e_scene,
+                                           e_start, plant_model, plant_ds,
+                                           kernels, card)
+
+  clock.start("the sensor agent's operating points, full width")
+  op_launches, op_ticks = op_points(cfg, maps, lanes, scene, state0, kernels,
+                                    card)
 
   clock.start("output")
   n_leaves = 0
@@ -1110,10 +1664,16 @@ def main():
   by_path = {name: {"tick": tick_launches[name],
                     "train_step": train_launches[name],
                     "eval": eval_launches[name],
-                    "dagger": dagger_launches[name]} for name in kernels}
+                    "dagger": dagger_launches[name],
+                    "plant_eval": plant_eval_launches[name],
+                    "plant_train": plant_train_launches[name],
+                    "plant_dagger": plant_dagger_launches[name],
+                    "op_points": op_launches[name]} for name in kernels}
   log(f"  launches: {by_path} (tick: {TICKS} ticks, train_step: "
       f"{TRAIN_STEPS} steps, eval: {eval_ticks} ticks, dagger: "
-      f"{dagger_ticks} ticks)")
+      f"{dagger_ticks} ticks, plant_eval: {plant_eval_ticks} ticks, "
+      f"plant_train: {PLANT_STEPS} steps, plant_dagger: "
+      f"{plant_dagger_ticks} ticks, op_points: {op_ticks} ticks)")
   clock.stop()
 
   log(card)

@@ -529,6 +529,18 @@ def crop_town_to_routes(town, episodes: list, crop_hw: tuple,
                              world_offset=off.astype(np.float32))
 
 
+def require_ported_towns(names) -> None:
+  """Raise NotImplementedError naming the first town that is not the
+  procedural grid town ('synth' or 'synth<N>'): imported CARLA towns need
+  the town importer and its assets, which are not ported. The entry
+  points call it on every town they will build before any work."""
+  for name in names:
+    if not name.startswith("synth"):
+      raise NotImplementedError(
+          f"town {name!r}: imported CARLA towns need the town importer and "
+          "its assets, which are not ported; use 'synth' or 'synth<N>'")
+
+
 def make_town_batch(cfg: GlobalConfig, town_name: str, batch: int = 4,
                     seed: int = 0, n_vehicles: int = 8, n_walkers: int = 2,
                     min_route_m: float = 250.0, max_route_m: float = 500.0,
@@ -542,10 +554,7 @@ def make_town_batch(cfg: GlobalConfig, town_name: str, batch: int = 4,
   (``sim/scenario_wiring.py``) to the routes. max_route_m bounds the
   lane-graph walks of imported towns, which are not ported: any other
   town name raises NotImplementedError."""
-  if not town_name.startswith("synth"):
-    raise NotImplementedError(
-        f"town {town_name!r}: imported CARLA towns need the town importer "
-        "and its assets, which are not ported; use 'synth' or 'synth<N>'")
+  require_ported_towns([town_name])
   dev = resolve_device(device)
   rng = np.random.default_rng(seed)
   t_seed = int(town_name[5:]) if town_name[5:].isdigit() else seed

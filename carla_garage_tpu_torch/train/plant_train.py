@@ -381,7 +381,8 @@ def plant_trainer(cfg: GlobalConfig, pcfg: PlanTConfig, ds: PlantDataset,
                   estimate_weights: bool = False,
                   schedule: str | None = "multistep",
                   learn_loss_weights: bool = False,
-                  val_fraction: float = 0.1) -> PlantTrainer:
+                  val_fraction: float = 0.1,
+                  speed_weights=SPEED_WEIGHTS) -> PlantTrainer:
   """The set-up of the training loop (train.py:643-996) on the dataset's
   device: the LR schedule over `steps`, optional Kendall weighting,
   AdamW (``transfuser_train.make_optimizer``, as optax's adamw with
@@ -389,10 +390,12 @@ def plant_trainer(cfg: GlobalConfig, pcfg: PlanTConfig, ds: PlantDataset,
   held-out validation split (train.py:822-843). params: None for a model
   initialized from `seed`, or a state dict to start from.
   estimate_weights: the speed-class weights from the dataset's class
-  counts instead of config.py's."""
+  counts instead of `speed_weights` (config.py's by default; the training
+  scripts carry a first segment's estimate into the later ones, as the
+  JAX package's rebound module global does)."""
   dev = ds.boxes.device
-  speed_weights = estimate_speed_weights(ds) if estimate_weights \
-      else SPEED_WEIGHTS
+  if estimate_weights:
+    speed_weights = estimate_speed_weights(ds)
   rng = np.random.default_rng(seed)
   train_ds, val_ds = _split_dataset(ds, val_fraction)
   with torch.random.fork_rng(devices=[]):

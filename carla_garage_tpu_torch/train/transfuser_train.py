@@ -228,6 +228,11 @@ def _losses(tcfg: TransfuserConfig, out, batch, log_vars=None,
   losses["target_speed"] = cross_entropy(
       out["pred_target_speed"], batch["speed_label"],
       weights=speed_weights, label_smoothing=0.1, sample_weight=sw)
+  if "pred_wp" in out:
+    # wp_w 0 for DAgger frames: their future ego positions are the learned
+    # policy's own trajectory, not expert waypoints
+    losses["wp"] = wmean(torch.abs(out["pred_wp"] - batch["wp_label"])) * \
+        batch.get("wp_w", 1.0)
   if "pred_semantic" in out:
     losses["semantic"] = cross_entropy(out["pred_semantic"],
                                        batch["semantic"], sample_weight=sw)
@@ -318,6 +323,7 @@ def make_train_batch(cfg: GlobalConfig, tcfg: TransfuserConfig, maps,
   batch["speed"] = torch.where(drop, 0.0, r["speed"])
   batch["depth_norm"] = r["depth"] / 85.0
   batch["command_onehot"] = command_onehot(r["command"])
+  batch["wp_label"] = waypoint_labels(frames)[0][f_idx]
   batch["ckpt_label"] = checkpoint_labels(
       frames, scene, tcfg.checkpoint_len)[f_idx]
   # brake_lookahead=2 frames (0.5 s at the 4 Hz save rate)
@@ -349,23 +355,30 @@ def make_transfuser_train_step(cfg: GlobalConfig, tcfg: TransfuserConfig,
                                scheduler=None):
   """Returns (train_step, eval_step, wp_valid).
 
-  train_step(f_idx, draws=None, generator=None) renders every frame
-  index of f_idx (host ints) as one micro-batch of all episodes,
-  accumulates the mean of their gradients, clips them to `clip_norm`
-  (global norm) when given, steps the optimizer and the scheduler, and
-  returns the micro-batches' mean aux losses as device tensors. draws:
-  one dict per index with the keys of DRAW_KEYS, or None to draw from
-  `generator`.
+  train_step(f_idx, draws=None, generator=None, data=None, wp_w=1.0)
+  renders every frame index of f_idx (host ints) as one micro-batch of all
+  episodes, accumulates the mean of their gradients, clips them to
+  `clip_norm` (global norm) when given, steps the optimizer and the
+  scheduler, and returns the micro-batches' mean aux losses as device
+  tensors. draws: one dict per index with the keys of DRAW_KEYS, or None
+  to draw from `generator`. data: the dataset (maps, scene, frames) to
+  render from, or None for the one given here; one optimizer carries
+  across datasets, as the training script's block scheduling and DAgger
+  rounds need. wp_w scales the waypoint loss of a model with a waypoint
+  head (0 on DAgger frames).
 
-  eval_step(f_idx, draws=None, generator=None) renders the indices as
-  one batch and returns the validation losses, the semantic and BEV mIoU,
-  the [4,4] speed-class confusion (label, prediction) and the checkpoint
-  angle error in degrees (train.py:822-843).
+  eval_step(f_idx, draws=None, generator=None, data=None, wp_w=1.0)
+  renders the indices as one batch and returns the validation losses, the
+  semantic and BEV mIoU, the [4,4] speed-class confusion (label,
+  prediction) and the checkpoint angle error in degrees
+  (train.py:822-843).
 
+  wp_valid is the waypoint-label mask of the dataset given here.
   log_vars: Kendall log-variances ({loss key: parameter}, in the
   optimizer) or None for fixed weights. bf16: the forward and backward
   run in bfloat16 on bfloat16 casts of the float32 parameters."""
   _, wp_valid = waypoint_labels(frames)
+  default_data = (maps, scene, frames)
   dev = next(model.parameters()).device
   cam_grid = torch.as_tensor(camera_grid, device=dev)
   lid_grid = torch.as_tensor(lidar_grid, device=dev).reshape(-1, 3)
@@ -376,18 +389,20 @@ def make_transfuser_train_step(cfg: GlobalConfig, tcfg: TransfuserConfig,
       return None
     return {n: p.to(torch.bfloat16) for n, p in model.named_parameters()}
 
-  def batch(f_idx, k, draws, generator):
-    return make_train_batch(cfg, tcfg, maps, scene, frames, int(f_idx[k]),
-                            cam_grid, lid_grid,
+  def batch(f_idx, k, draws, generator, data):
+    maps_, scene_, frames_ = default_data if data is None else data
+    return make_train_batch(cfg, tcfg, maps_, scene_, frames_,
+                            int(f_idx[k]), cam_grid, lid_grid,
                             {} if draws is None else draws[k],
                             generator=generator, bf16=bf16)
 
-  def train_step(f_idx, draws=None, generator=None):
+  def train_step(f_idx, draws=None, generator=None, data=None, wp_w=1.0):
     K = len(f_idx)
     optimizer.zero_grad(set_to_none=True)
     acc = {}
     for k in range(K):
-      b = batch(f_idx, k, draws, generator)
+      b = batch(f_idx, k, draws, generator, data)
+      b["wp_w"] = wp_w
       loss, aux = transfuser_loss(cfg, tcfg, model, cast_params(), b,
                                   log_vars=log_vars,
                                   speed_weights=speed_weights)
@@ -402,10 +417,11 @@ def make_transfuser_train_step(cfg: GlobalConfig, tcfg: TransfuserConfig,
     return acc
 
   @torch.no_grad()
-  def eval_step(f_idx, draws=None, generator=None):
+  def eval_step(f_idx, draws=None, generator=None, data=None, wp_w=1.0):
     b = tree_map(lambda *xs: torch.cat(xs),
-                 *[batch(f_idx, k, draws, generator)
+                 *[batch(f_idx, k, draws, generator, data)
                    for k in range(len(f_idx))])
+    b["wp_w"] = wp_w
     out = _forward(model, cast_params(), b)
     _, aux = _losses(tcfg, out, b, speed_weights=speed_weights)
     if "pred_semantic" in out:

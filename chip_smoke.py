@@ -93,7 +93,31 @@ Phases, each of which fails the run if it fails:
      heatmap logits, and the controller must track it and brake; then
      ``jpeg_artifacts`` and ``topk_decode`` on the card against the CPU
      on one tick's inputs;
-  16. the output: every tick-state leaf finite, ticks advanced.
+  16. bench.py's operating points through the port's bench functions:
+     the expert at B=256 (20 ticks a round) and the reduced sensor point
+     at B=128 (10 ticks a round), one warm-up round and two timed rounds
+     each, with env-steps/s and ms/tick, every state leaf finite, 0 and 2
+     raycast launches a tick; the raycast kernel against its plain
+     version at the shapes the sensor point gave it (B=128); then the
+     stage profile of the reduced and the full point (3 repetitions);
+  17. checkpoints: TransfuserConfig() and the PlanT recipe's config saved
+     and loaded into fresh models on the card (state dicts bit-equal, one
+     forward equal), and ``config_from_meta`` over every committed
+     ``checkpoints/*/meta.json``;
+  18. ``train_plant`` end to end on synthetic towns at a cut depth: the
+     results JSON's keys, the best segment's weights saved and loaded bit
+     for bit, no kernel launch;
+  19. ``dagger_ab`` end to end: both arms, a verdict, waypoint weight 0
+     on every DAgger sample;
+  20. ``train_transfuser`` end to end at TransfuserConfig() (bf16): the
+     kernels' launches of every step, no host sync in a step, the step,
+     DAgger and best checkpoints and the results JSON; both kernels
+     against their plain versions at every shape the run gave them
+     (training, eval and DAgger batches); then the same
+     arguments again, which must take every shard from the cache, resume
+     the train state after the last BC step and run no BC step before its
+     DAgger round, where it is stopped;
+  21. the output: every tick-state leaf finite, ticks advanced.
 
 Every phase prints its wall time. The last two lines of standard output
 are the ``kernels`` JSON and ``{"ok": true, "device": ...}``. A kernel's
@@ -103,6 +127,7 @@ and prints no result.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -135,6 +160,30 @@ PLANT_BATCH = 512                 # the r5 recipe's --batch
 PLANT_STEPS = 10                  # timed full-width PlanT steps
 OP_WARMUP, OP_TICKS = 3, 4        # operating points: warm-up, timed ticks
 STOP_AHEAD_M = 1.0                # stop_control: the class-3 peak ahead
+BENCH_OBJ_TICKS = 20              # bench points: ticks a round (bench.py:
+BENCH_SENSOR_TICKS = 10           # 200 and 50), timed rounds (5 and 3)
+BENCH_ROUNDS = 2                  # after one warm-up round
+BENCH_PROFILE_REPS = 3            # stage profile repetitions (bench.py: 10)
+ENTRY_EVAL_CHUNK = 64             # the entry points' evals: ticks a chunk
+ENTRY_EVAL_TICKS = 64             # and in all (the scripts: 512, 6,000)
+SMALL_EVAL = ["--eval-seeds", "1", "--eval-routes", "2", "--eval-max-ticks",
+              str(ENTRY_EVAL_TICKS)]
+PLANT_ENTRY_ARGV = ["--towns", "synth", "synth2", "--eval-towns", "synth3",
+                    "--shards", "2", "--episodes", "8", "--frames", "20",
+                    "--steps", "20", "--segments", "2", "--batch",
+                    "128"] + SMALL_EVAL
+# one shard of 16 episodes: 8 would hold at most 8 x 12 labelled frames,
+# less than a batch of 128
+DAGGER_AB_ARGV = ["--towns", "synth", "synth2", "--eval-towns", "synth3",
+                  "--segments", "2", "--seg-steps", "10", "--shards", "1",
+                  "--episodes", "16", "--frames", "20", "--dagger-frames",
+                  "20", "--batch", "128"] + SMALL_EVAL
+TRANSFUSER_ENTRY_ARGV = [
+    "--towns", "synth", "synth2", "--eval-towns", "synth3", "--datasets",
+    "2", "--episodes", "4", "--frames", "20", "--steps", "4",
+    "--frames-per-step", "2", "--block-steps", "2", "--eval-every", "2",
+    "--eval-routes", "2", "--final-eval-seeds", "1", "--dagger-rounds", "1",
+    "--dagger-steps", "2", "--dagger-frames", "20"]
 
 
 def log(*a):
@@ -1486,6 +1535,381 @@ def op_points(cfg, maps, lanes, scene, state0, kernels, card):
   return total, len(options) * OP_TICKS
 
 
+def finite_leaves(tree, what):
+  """Assert every float leaf of tree finite; returns the leaf count."""
+  from carla_garage_tpu_torch.structs import tree_items
+  n = 0
+  for path, x in tree_items(tree):
+    if x.dtype.is_floating_point:
+      assert bool(torch.isfinite(x).all()), (what, path)
+    n += 1
+  return n
+
+
+def launches_during(kernels, fn):
+  """(fn's result, each kernel's launches in it): the counts are set to 0
+  just before fn runs and read just after."""
+  for k in kernels.values():
+    k.launches = 0
+  out = fn()
+  return out, {n: k.launches for n, k in kernels.items()}
+
+
+@contextlib.contextmanager
+def first_inputs_by_shape():
+  """While the body runs, record the inputs of the first raycast call and
+  of the first box-fill call of each distinct shape: the shapes a path
+  gave the kernels. Yields {"raycast": [inputs], "fill": [(boxes, h,
+  w)]}; a recorded call runs the kernel as before."""
+  from carla_garage_tpu_torch.ops import bev_fill as ops_bev_fill
+  from carla_garage_tpu_torch.sensors import bev as sensors_bev
+  from carla_garage_tpu_torch.sensors import raycast as sensors_raycast
+
+  seen = {"raycast": {}, "fill": {}}
+  real_rc, real_bev = sensors_raycast.raycast_boxes, sensors_bev.fill_boxes_bev
+
+  def rec_rc(*xs):
+    key = tuple(tuple(x.shape) for x in xs)
+    if key not in seen["raycast"]:
+      seen["raycast"][key] = tuple(x.clone() for x in xs)
+    return real_rc(*xs)
+
+  def rec_bev(cx, cy, yaw, ex, ey, cls, valid, h=256, w=256):
+    key = (tuple(cx.shape), h, w)
+    if key not in seen["fill"]:         # the array fill_boxes_bev packs
+      boxes = ops_bev_fill.pack_boxes(cx, cy, torch.cos(yaw), torch.sin(yaw),
+                                      ex, ey, cls, valid)
+      seen["fill"][key] = (boxes.contiguous(), h, w)
+    return real_bev(cx, cy, yaw, ex, ey, cls, valid, h=h, w=w)
+
+  out = {"raycast": [], "fill": []}
+  sensors_raycast.raycast_boxes, sensors_bev.fill_boxes_bev = rec_rc, rec_bev
+  try:
+    yield out
+  finally:
+    sensors_raycast.raycast_boxes, sensors_bev.fill_boxes_bev = real_rc, \
+        real_bev
+    out["raycast"] = list(seen["raycast"].values())
+    out["fill"] = list(seen["fill"].values())
+
+
+def check_path_inputs(path, recorded):
+  """Each kernel against its plain version (bit-equal, timed) at every
+  shape recorded on a path. Returns (raycast max|err|, fill max|err|)."""
+  rc_err, fill_err = 0.0, 0.0
+  for inputs in recorded["raycast"]:
+    err, _, _ = check_raycast(f"raycast_boxes[{path}]", inputs)
+    rc_err = max(rc_err, err)
+  for boxes, h, w in recorded["fill"]:
+    err, _, _ = check_fill(f"fill_boxes_bev[{path}]", boxes, h, w)
+    fill_err = max(fill_err, err)
+  return rc_err, fill_err
+
+
+def bench_points(kernels, card):
+  """bench.py's object-level point (B=256) and reduced sensor point
+  (B=128) through the port's bench functions at a cut depth, the raycast
+  kernel against its plain version at the sensor point's shapes, then
+  both sensor points' stage profiles. Returns ({path: launches}, {path:
+  ticks}, raycast max|err|)."""
+  from carla_garage_tpu_torch import bench
+
+  launches, ticks = {}, {}
+  rc_err = 0.0
+  for path, fn, n_ticks, b1 in (
+      ("bench_object", lambda: bench.measure_object_level(
+          ticks=BENCH_OBJ_TICKS, rounds=BENCH_ROUNDS), BENCH_OBJ_TICKS, 0),
+      ("bench_sensor_reduced", lambda: bench.measure_sensor_on(
+          False, ticks=BENCH_SENSOR_TICKS, rounds=BENCH_ROUNDS),
+       BENCH_SENSOR_TICKS, 2)):
+    t0 = time.perf_counter()
+    with first_inputs_by_shape() as recorded:
+      (rate, state), n = launches_during(kernels, fn)
+    run = (1 + BENCH_ROUNDS) * n_ticks          # the warm-up round included
+    B = state.tick.shape[0]
+    n_leaves = finite_leaves(state, path)
+    log(f"  {path}: B={B}, {BENCH_ROUNDS} timed rounds of {n_ticks} ticks "
+        f"after a warm-up round: {rate:.1f} env-steps/s, "
+        f"{1e3 * B / rate:.2f} ms/tick ({card}); launches {n} in {run} "
+        f"ticks; {n_leaves} state leaves finite; "
+        f"{time.perf_counter() - t0:.1f} s with the set-up")
+    assert n == {"raycast_boxes": b1 * run, "fill_boxes_bev": 0}, (path, n)
+    assert bool((state.tick > 0).all())
+    assert len(recorded["raycast"]) == (2 if b1 else 0), \
+        [tuple(x[1].shape) for x in recorded["raycast"]]
+    rc_err = max(rc_err, check_path_inputs(path, recorded)[0])
+    launches[path], ticks[path] = n, run
+  for full_spec in (False, True):
+    prof = bench.profile_sensor_stages(full_spec, reps=BENCH_PROFILE_REPS)
+    log(f"  stage profile ({BENCH_PROFILE_REPS} repetitions, {card}): "
+        f"{json.dumps(prof)}")
+    assert all(np.isfinite(v) and v > 0 for k, v in prof.items()
+               if k not in ("B", "config", "other_ms")), prof
+  return launches, ticks, rc_err
+
+
+def checkpoints_round_trip():
+  """Save TransfuserConfig() and plant_config() models and load them into
+  fresh models on the card: state dicts bit-equal, one forward equal;
+  config_from_meta over every committed checkpoints/*/meta.json."""
+  import tempfile
+
+  from carla_garage_tpu_torch.models.plant import PlanT
+  from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
+                                                        TransfuserConfig)
+  from carla_garage_tpu_torch.scripts.train_plant import plant_config
+  from carla_garage_tpu_torch.utils.checkpoint import (config_from_meta,
+                                                       load_checkpoint,
+                                                       save_checkpoint)
+
+  g = torch.Generator(device="cuda").manual_seed(0)
+  rand = lambda *s: torch.rand(s, generator=g, device="cuda")
+  tcfg, pcfg = TransfuserConfig(), plant_config()
+  B, O, R = 2, pcfg.max_objects, pcfg.num_route_points
+  cases = (
+      ("transfuser", tcfg, LidarCenterNet,
+       (rand(B, tcfg.img_h, tcfg.img_w, 3),
+        rand(B, tcfg.lidar_h, tcfg.lidar_w, tcfg.lidar_channels),
+        rand(B, 2) * 20, torch.eye(6, device="cuda")[:B], rand(B) * 8)),
+      ("plant", pcfg, PlanT,
+       (rand(B, O, 7) * 10, torch.randint(0, 4, (B, O), generator=g,
+                                         device="cuda", dtype=torch.int32),
+        rand(B, R, 2) * 30, rand(B).round(), rand(B).round(),
+        rand(B).round(), rand(B) * 8)))
+  with tempfile.TemporaryDirectory() as tmp:
+    for seed, (name, mcfg, cls, inputs) in enumerate(cases):
+      torch.manual_seed(seed)
+      model = cls(mcfg).cuda().eval()
+      path = str(pathlib.Path(tmp) / name)
+      save_checkpoint(path, model, meta={"model": name,
+                                         "config": dataclasses.asdict(mcfg)})
+      _, meta = load_checkpoint(path, meta_only=True)
+      back = config_from_meta(meta)
+      assert back == mcfg and hash(back) == hash(mcfg), (name, back)
+      torch.manual_seed(seed + 10)
+      fresh = cls(back).cuda().eval()
+      load_checkpoint(path, fresh)
+      sd, sd2 = model.state_dict(), fresh.state_dict()
+      assert sd.keys() == sd2.keys() and all(
+          torch.equal(sd[k], sd2[k]) for k in sd), name
+      with torch.no_grad():
+        a, b = model(*inputs), fresh(*inputs)
+      from carla_garage_tpu_torch.structs import tree_items
+      pairs = list(zip(tree_items(a), tree_items(b)))
+      assert pairs and all(torch.equal(x, y) for (_, x), (_, y) in pairs), \
+          name
+      log(f"  {name}: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}"
+          f"M parameters saved and loaded bit-equal on the card; "
+          f"config_from_meta equal and hashable; {len(pairs)} forward "
+          f"outputs equal")
+  metas = sorted(pathlib.Path("checkpoints").glob("*/meta.json"))
+  kinds = {}
+  for p in metas:
+    c = config_from_meta(json.loads(p.read_text()))
+    hash(c)
+    kinds[type(c).__name__] = kinds.get(type(c).__name__, 0) + 1
+  log(f"  config_from_meta over {len(metas)} committed meta.json: {kinds}, "
+      f"all hashable")
+  assert metas
+
+
+def entry_plant(kernels, card):
+  """train_plant end to end at plant_config() on synthetic towns at a cut
+  depth. Returns the launches."""
+  import tempfile
+
+  from carla_garage_tpu_torch.scripts import train_plant as tp
+  from carla_garage_tpu_torch.utils.checkpoint import (cpu_state,
+                                                       load_checkpoint)
+
+  seg_states = []
+  real_train = tp.train_plant
+
+  def recorded(*a, **kw):
+    model, hist = real_train(*a, **kw)
+    seg_states.append(cpu_state(model))
+    return model, hist
+
+  with tempfile.TemporaryDirectory() as tmp:
+    argv = PLANT_ENTRY_ARGV + ["--out", f"{tmp}/plant", "--results",
+                               f"{tmp}/plant.json"]
+    tp.train_plant = recorded
+    try:
+      t0 = time.perf_counter()
+      out, n = launches_during(kernels, lambda: tp.run(tp.parse_args(argv),
+                                                eval_chunk=ENTRY_EVAL_CHUNK))
+      dt = time.perf_counter() - t0
+    finally:
+      tp.train_plant = real_train
+    back = json.loads(pathlib.Path(f"{tmp}/plant.json").read_text())
+    assert set(back) == {"samples", "steps", "best_eval", "evals", "meta"}, \
+        sorted(back)
+    best_seg = back["best_eval"]["segment"]
+    saved, meta = load_checkpoint(f"{tmp}/plant")
+    want = seg_states[best_seg]
+    assert saved.keys() == want.keys() and all(
+        torch.equal(saved[k], want[k]) for k in want)
+    assert meta["model"] == "plant" and meta["samples"] == back["samples"]
+  log(f"  train_plant: {back['samples']} samples, {len(back['evals'])} "
+      f"segments, DS by segment {[round(e['DS'], 3) for e in back['evals']]}"
+      f"; best segment {best_seg} saved and loaded bit-equal; {dt:.1f} s "
+      f"({card}); launches {n}")
+  assert n == {"raycast_boxes": 0, "fill_boxes_bev": 0}, n
+  return n
+
+
+def entry_dagger_ab(kernels, card):
+  """dagger_ab end to end at a cut depth: both arms, a verdict, waypoint
+  weight 0 on every DAgger sample. Returns the launches."""
+  import tempfile
+
+  from carla_garage_tpu_torch.scripts import dagger_ab as da
+
+  dagger_sets = []
+  real_collect = da.collect_dagger_ds
+
+  def recorded(*a, **kw):
+    ds = real_collect(*a, **kw)
+    dagger_sets.append(ds)
+    return ds
+
+  with tempfile.TemporaryDirectory() as tmp:
+    argv = DAGGER_AB_ARGV + ["--results", f"{tmp}/ab.json"]
+    da.collect_dagger_ds = recorded
+    try:
+      t0 = time.perf_counter()
+      out, n = launches_during(kernels, lambda: da.run(da.parse_args(argv),
+                                                eval_chunk=ENTRY_EVAL_CHUNK))
+      dt = time.perf_counter() - t0
+    finally:
+      da.collect_dagger_ds = real_collect
+  arms = [r["arm"] for r in out["arms"]]
+  assert arms == ["bc", "dagger"] and out["verdict"] in (
+      "dagger helps", "dagger hurts", "within noise"), out
+  assert dagger_sets and all(bool((d.wp_weight == 0).all()) and len(d)
+                             for d in dagger_sets)
+  log(f"  dagger_ab: DS bc {out['arms'][0]['DS']:.3f}, dagger "
+      f"{out['arms'][1]['DS']:.3f}, verdict {out['verdict']!r}; "
+      f"{sum(len(d) for d in dagger_sets)} DAgger samples, waypoint weight "
+      f"0; {dt:.1f} s ({card}); launches {n}")
+  assert n == {"raycast_boxes": 0, "fill_boxes_bev": 0}, n
+  return n
+
+
+def entry_transfuser(kernels, card):
+  """train_transfuser end to end at TransfuserConfig() (bf16) at a cut
+  depth, then once more with the same arguments, which must take every
+  shard from the cache, resume the train state after the last BC step and
+  run no BC step; it is stopped where its DAgger round begins, which
+  would repeat the first run's (the CPU tests run a resumed call to its
+  end and hold it to an uninterrupted one). Both kernels are held against their plain versions at
+  every shape the first run gave them. Returns (the first run's
+  launches, raycast max|err|, fill max|err|)."""
+  import tempfile
+
+  from carla_garage_tpu_torch.scripts import train_transfuser as tf
+  from carla_garage_tpu_torch.utils.checkpoint import load_checkpoint
+
+  steps, built, syncs, resumed = [], [], [], []
+  real_make, real_build = tf.make_transfuser_train_step, tf.build_dataset
+  real_load, real_dagger = tf.load_trainstate, tf.build_dagger_dataset
+
+  class ReachedDagger(Exception):
+    """The resumed call has reached its DAgger rounds."""
+
+  def make(*a, **kw):
+    train_step, eval_step, wp_valid = real_make(*a, **kw)
+
+    def step(*sa, **skw):
+      before = {n: k.launches for n, k in kernels.items()}
+      if len(steps) == 1:                 # the second step: sync check
+        out = []
+        syncs.extend(host_syncs(lambda: out.append(train_step(*sa, **skw))))
+        aux = out[0]
+      else:
+        aux = train_step(*sa, **skw)
+      steps.append({n: k.launches - before[n] for n, k in kernels.items()})
+      return aux
+
+    return step, eval_step, wp_valid
+
+  def build(*a, **kw):
+    built.append(1)
+    return real_build(*a, **kw)
+
+  def load(*a, **kw):
+    ts = real_load(*a, **kw)
+    resumed.append(None if ts is None else ts["step"])
+    return ts
+
+  def stop(*a, **kw):
+    raise ReachedDagger
+
+  args = lambda tmp: tf.parse_args(TRANSFUSER_ENTRY_ARGV + [
+      "--out", f"{tmp}/tf", "--results", f"{tmp}/tf.json"])
+  n_bc, n_dag = 4, 2
+  K = 2
+  with tempfile.TemporaryDirectory() as tmp:
+    tf.make_transfuser_train_step, tf.build_dataset = make, build
+    tf.load_trainstate = load
+    try:
+      t0 = time.perf_counter()
+      with first_inputs_by_shape() as recorded:
+        out, n = launches_during(kernels, lambda: tf.run(
+            args(tmp), eval_chunk=ENTRY_EVAL_CHUNK,
+            eval_max_ticks=ENTRY_EVAL_TICKS))
+      dt = time.perf_counter() - t0
+      assert len(steps) == n_bc + n_dag and len(built) == 2, (steps, built)
+      assert all(s == {"raycast_boxes": 2 * K, "fill_boxes_bev": K}
+                 for s in steps), steps
+      log(f"  train_transfuser: {len(steps)} steps ({n_bc} BC + {n_dag} "
+          f"DAgger) of {K} micro-batches, each with "
+          f"{steps[0]['raycast_boxes']} raycast and "
+          f"{steps[0]['fill_boxes_bev']} box-fill launches; host syncs in "
+          f"its second step {len(syncs)} {syncs}; final DS "
+          f"{out['transfuser_DS']:.3f}; {dt:.1f} s ({card}); launches {n}")
+      assert not syncs, "a train step must not wait for the device"
+      back = json.loads(pathlib.Path(f"{tmp}/tf.json").read_text())
+      assert {"transfuser_DS", "transfuser_DS_std", "transfuser_RC",
+              "transfuser_IS", "final_eval", "best_train_eval", "evals",
+              "steps", "frames", "meta"} == set(back), sorted(back)
+      assert [e["step"] for e in back["evals"]] == [2, 4, 4 + n_dag]
+      for name in ("tf_step2", "tf_step4", "tf_dagger0", "tf"):
+        sd, meta = load_checkpoint(f"{tmp}/{name}")
+        assert meta["model"] == "transfuser" and all(
+            bool(torch.isfinite(v).all()) for v in sd.values()), name
+      ts = torch.load(f"{tmp}/tf_trainstate.pt", weights_only=False)
+      assert ts["step"] == n_bc, ts["step"]
+      log(f"  checkpoints tf_step2, tf_step4, tf_dagger0 and the best "
+          f"(DS {back['best_train_eval']['DS']:.3f} at step "
+          f"{back['best_train_eval']['step']}) load; results JSON read back")
+      # training renders a camera and a full sweep a micro-batch and one
+      # BEV box map; the evals and DAgger a camera and a half sweep a tick
+      assert len(recorded["raycast"]) >= 4 and recorded["fill"], \
+          [tuple(x[1].shape) for x in recorded["raycast"]]
+      rc_err, fill_err = check_path_inputs("entry_transfuser", recorded)
+
+      steps.clear()
+      built.clear()
+      t0 = time.perf_counter()
+      tf.build_dagger_dataset = stop
+      try:
+        tf.run(args(tmp), eval_chunk=ENTRY_EVAL_CHUNK,
+               eval_max_ticks=ENTRY_EVAL_TICKS)
+        raise AssertionError("the resumed call did not reach DAgger")
+      except ReachedDagger:
+        pass
+      assert resumed == [None, n_bc], resumed
+      assert not built and not steps, (built, steps)
+      log(f"  second call: every shard from the cache, train state resumed "
+          f"at step {resumed[1]}, 0 BC steps until its DAgger round, where "
+          f"it is stopped; {time.perf_counter() - t0:.1f} s")
+    finally:
+      tf.make_transfuser_train_step, tf.build_dataset = real_make, real_build
+      tf.load_trainstate, tf.build_dagger_dataset = real_load, real_dagger
+  return n, rc_err, fill_err
+
+
 def main():
   ap = argparse.ArgumentParser()
   ap.add_argument("--profile", metavar="PATH",
@@ -1647,6 +2071,23 @@ def main():
   op_launches, op_ticks = op_points(cfg, maps, lanes, scene, state0, kernels,
                                     card)
 
+  clock.start("bench.py's operating points on the port")
+  bench_launches, bench_ticks, err = bench_points(kernels, card)
+  rc_err = max(rc_err, err)
+
+  clock.start("checkpoints: save and load at full width")
+  checkpoints_round_trip()
+
+  clock.start("train_plant end to end at plant_config()")
+  plant_entry_launches = entry_plant(kernels, card)
+
+  clock.start("dagger_ab end to end")
+  dagger_ab_launches = entry_dagger_ab(kernels, card)
+
+  clock.start("train_transfuser end to end at full width, then resumed")
+  transfuser_entry_launches, err, f_err = entry_transfuser(kernels, card)
+  rc_err, fill_err = max(rc_err, err), max(fill_err, f_err)
+
   clock.start("output")
   n_leaves = 0
   for path, x in tree_items(state):
@@ -1668,12 +2109,22 @@ def main():
                     "plant_eval": plant_eval_launches[name],
                     "plant_train": plant_train_launches[name],
                     "plant_dagger": plant_dagger_launches[name],
-                    "op_points": op_launches[name]} for name in kernels}
+                    "op_points": op_launches[name],
+                    "bench_object": bench_launches["bench_object"][name],
+                    "bench_sensor_reduced":
+                        bench_launches["bench_sensor_reduced"][name],
+                    "entry_plant": plant_entry_launches[name],
+                    "entry_dagger_ab": dagger_ab_launches[name],
+                    "entry_transfuser": transfuser_entry_launches[name]}
+             for name in kernels}
   log(f"  launches: {by_path} (tick: {TICKS} ticks, train_step: "
       f"{TRAIN_STEPS} steps, eval: {eval_ticks} ticks, dagger: "
       f"{dagger_ticks} ticks, plant_eval: {plant_eval_ticks} ticks, "
       f"plant_train: {PLANT_STEPS} steps, plant_dagger: "
-      f"{plant_dagger_ticks} ticks, op_points: {op_ticks} ticks)")
+      f"{plant_dagger_ticks} ticks, op_points: {op_ticks} ticks, "
+      f"bench_object: {bench_ticks['bench_object']} ticks, "
+      f"bench_sensor_reduced: {bench_ticks['bench_sensor_reduced']} ticks, "
+      f"entry_*: whole runs)")
   clock.stop()
 
   log(card)

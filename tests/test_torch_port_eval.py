@@ -59,6 +59,16 @@ CFG = DEFAULT_CONFIG.replace(sim=dataclasses.replace(DEFAULT_CONFIG.sim,
                                                      max_vehicles=V))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+  """These tests run beside other test processes (one per core): a torch
+  thread pool of its own per process would oversubscribe the cores."""
+  n = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(n)
+
+
 def assert_leaves(want: dict, got: dict, rtol, atol, what=""):
   assert set(want) == set(got), (what, set(want) ^ set(got))
   for key, w in want.items():

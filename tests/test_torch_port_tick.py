@@ -40,6 +40,16 @@ B = 2
 TICKS = 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+  """These tests run beside other test processes (one per core): a torch
+  thread pool of its own per process would oversubscribe the cores."""
+  n = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(n)
+
+
 def _tick_config():
   return dataclasses.replace(jtf.micro_config(), img_h=32, img_w=128,
                              lidar_h=256, lidar_w=256, img_anchors=(1, 4),

@@ -52,6 +52,16 @@ B = 2
 T = lambda a: torch.from_numpy(np.array(a))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+  """These tests run beside other test processes (one per core): a torch
+  thread pool of its own per process would oversubscribe the cores."""
+  n = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(n)
+
+
 def _reduced(cfg):
   return cfg.replace(sensor=dataclasses.replace(
       cfg.sensor, lidar_resolution_width=128, lidar_resolution_height=128))

@@ -1,12 +1,14 @@
-"""Batched benchmark evaluation (port of the synthetic-town runner and the
-record helpers of carla_garage_tpu/eval/benchmark.py).
+"""Batched benchmark evaluation (port of carla_garage_tpu/eval/benchmark.py):
+the leaderboard evaluator and its job farm replaced by batches on the card.
 
-Every route x repetition is one batch element, and a batch runs as one
-chunked rollout. Records follow the leaderboard's StatisticsManager JSON
-layout and the CSV summary mirrors its result parser. The runs on imported
-CARLA benchmark towns (``run_carla_benchmark``) need the town importer and
-its assets, and the episode sharding over several cards needs the
-multi-GPU layer: neither is ported yet.
+The reference evaluates Longest6 as 36 routes x 3 seeds, one job and one
+CARLA server each. Here every route x repetition is one batch element:
+``run_carla_benchmark`` runs a town's routes (or, with single_batch, every
+town's) as one chunked rollout on the imported towns of an asset root, and
+``run_synthetic_benchmark`` does the same on the procedural town. Records
+follow the leaderboard's StatisticsManager JSON layout and the CSV summary
+mirrors its result parser. Sharding the episodes over several cards is
+the multi-GPU layer's, which is not ported.
 """
 
 from __future__ import annotations
@@ -14,21 +16,32 @@ from __future__ import annotations
 import csv
 import json
 import os
+import time
+from collections import defaultdict
 
 import numpy as np
 import torch
 
 from carla_garage_tpu_torch.config import GlobalConfig, longest6_config
-from carla_garage_tpu_torch.eval.analysis import events_from_criteria
+from carla_garage_tpu_torch.device import resolve_device
+from carla_garage_tpu_torch.eval.analysis import (events_from_criteria,
+                                                  write_analysis)
+from carla_garage_tpu_torch.maps import importer
 from carla_garage_tpu_torch.sim.episode import (rollout_chunked,
                                                 rollout_recorded)
 from carla_garage_tpu_torch.sim.expert import expert_step
-from carla_garage_tpu_torch.sim.scene_builder import make_synthetic_batch
+from carla_garage_tpu_torch.sim.scenario_wiring import \
+    build_benchmark_scenarios
+from carla_garage_tpu_torch.sim.scene_builder import (build_batch,
+                                                      compile_route,
+                                                      make_synthetic_batch)
 from carla_garage_tpu_torch.sim.scoring import compute_scores
+from carla_garage_tpu_torch.structs import tree_map
 
 INFRACTION_KEYS = ("collisions_pedestrian", "collisions_vehicle",
                    "collisions_layout", "red_light", "stop_infraction")
 CHUNK = 512                      # run_synthetic_benchmark's ticks a chunk
+CARLA_CHUNK = 1024               # run_carla_benchmark's ticks a chunk
 
 
 def _route_lens(scene) -> np.ndarray:
@@ -148,6 +161,179 @@ def _rollout_chunked_recorded(cfg, maps, lanes, scene, state, max_ticks,
       break
   return state, {k: np.concatenate([c[k] for c in chunks], 0)
                  for k in chunks[0]}
+
+
+def _scenario_setup(cfg, scen_ann, episodes, town, seed: int,
+                    device="cuda"):
+  """All 7 scenario types per episode: annotation-driven (1/3/4) and
+  geometry-synthesized (2/5/6/7-10), ``sim/scenario_wiring.py``."""
+  return build_benchmark_scenarios(cfg, town, episodes, scen_ann, seed,
+                                   device=device)
+
+
+def run_carla_benchmark(cfg: GlobalConfig = None, benchmark: str = "longest6",
+                        reps: int = 1, towns: list | None = None,
+                        n_vehicles: int = 8, n_walkers: int = 2,
+                        max_ticks: int = 60000, seed: int = 0,
+                        policy=expert_step, assets_root=None,
+                        use_scenarios: bool = True,
+                        single_batch: bool = False,
+                        verbose: bool = True,
+                        analysis_dir: str | None = None,
+                        agent_reset=None, device="cuda"):
+  """Run a benchmark's routes (``leaderboard/data/{benchmark}.xml`` under
+  `assets_root`, else $CGT_ASSETS_ROOT) on their imported towns.
+  Returns (records, global record).
+
+  Per town (the default), each town's routes x `reps` are one batch,
+  rolled in chunks of CARLA_CHUNK ticks until every episode is done or
+  `max_ticks` have run. single_batch=True runs every town's routes as one
+  mixed-town batch and one rollout: the fastest mode for object-level
+  policies; it holds every town's raster on the card at once.
+
+  use_scenarios attaches all 7 scenario types (annotations and
+  geometry-synthesized triggers). analysis_dir (per-town mode) records
+  decimated trajectories and writes the result parser's artifacts there:
+  per-town infraction maps and replay clips (``eval/analysis.py``, which
+  needs matplotlib).
+
+  policy: a ``sim_step`` policy closure (the expert by default, or a
+  learned agent's, which carries its weights); agent_reset(cfg, B,
+  device=...) gives the agent state installed as ``state.agent`` before
+  the rollout. Each rollout draws from a ``torch.Generator`` seeded with
+  `seed`."""
+  cfg = cfg or (longest6_config() if benchmark == "longest6"
+                else GlobalConfig())
+  dev = resolve_device(device)
+  root = importer.resolve_assets_root(assets_root)
+  routes = importer.load_benchmark_routes(benchmark, root)
+  by_town = defaultdict(list)
+  for r in routes:
+    if towns is None or r.town in towns:
+      by_town[r.town].append(r)
+  gen = lambda: torch.Generator(device=dev).manual_seed(seed)
+
+  if single_batch:
+    return _run_single_batch(cfg, by_town, root, reps, n_vehicles,
+                             n_walkers, max_ticks, seed, policy,
+                             use_scenarios, verbose, agent_reset, dev,
+                             gen())
+
+  records = []
+  for town_name, town_routes in sorted(by_town.items()):
+    t0 = time.time()
+    imported = importer.load_town(town_name, root, rng_seed=seed)
+    eps, ids, polys = [], [], []
+    # compile once, reuse across reps
+    compiled = []
+    town_adapter = importer.as_synthetic_town(imported, [
+        r.keypoints_xy for r in town_routes])
+    for r in town_routes:
+      ep = compile_route(town_adapter, r.keypoints_xy, r.keypoints_yaw)
+      compiled.append(ep)
+      polys.append(ep.dense)
+    town_adapter = importer.as_synthetic_town(imported, polys)
+    for rep in range(reps):
+      for r, ep in zip(town_routes, compiled):
+        eps.append(ep)
+        ids.append(f"{r.route_id}_rep{rep}")
+    walker_sites = None
+    scenario_npcs = None
+    if use_scenarios:
+      scen_ann = importer.load_scenarios(town_name, root)
+      walker_sites, specs, scen_state, scenario_npcs = _scenario_setup(
+          cfg, scen_ann, eps, town_adapter, seed, device=dev)
+    maps, lanes, scene, state = build_batch(
+        cfg, town_adapter, eps, seed=seed, n_vehicles=n_vehicles,
+        n_walkers=n_walkers, walker_sites=walker_sites,
+        scenario_npcs=scenario_npcs, device=dev)
+    if use_scenarios:
+      scene = scene.replace(scenarios=specs)
+      state = state.replace(scenario=scen_state)
+    if agent_reset is not None:
+      state = state.replace(agent=agent_reset(cfg, len(eps), device=dev))
+    if analysis_dir:
+      final, traj = _rollout_chunked_recorded(
+          cfg, maps, lanes, scene, state, max_ticks, policy=policy,
+          generator=gen())
+    else:
+      final = rollout_chunked(cfg, maps, lanes, scene, state, max_ticks,
+                              chunk=CARLA_CHUNK, policy=policy,
+                              generator=gen())
+    recs = _records(cfg, scene, final, ids, town_name)
+    records += recs
+    if analysis_dir:
+      tw = town_adapter
+      write_analysis(
+          analysis_dir,
+          {town_name: (np.asarray(tw.raster), np.asarray(tw.world_offset),
+                       float(tw.ppm))},
+          {town_name: [(r["index"], r["events"]) for r in recs]},
+          {town_name: [ep.dense for ep in compiled]},
+          {town_name: traj})
+    if verbose:
+      ds = np.mean([x["scores"]["score_composed"] for x in recs])
+      print(f"{town_name}: {len(recs)} episodes, DS {ds:.1f}, "
+            f"{time.time() - t0:.0f}s", flush=True)
+  return records, aggregate(records)
+
+
+def _run_single_batch(cfg, by_town, root, reps, n_vehicles, n_walkers,
+                      max_ticks, seed, policy, use_scenarios, verbose,
+                      agent_reset, device, generator):
+  """All routes of all towns in one mixed-town batch and one rollout."""
+  t0 = time.time()
+  towns, eps, ids, town_idx, town_names, anns = [], [], [], [], [], []
+  for ti, (town_name, town_routes) in enumerate(sorted(by_town.items())):
+    imported = importer.load_town(town_name, root, rng_seed=seed)
+    adapter = importer.as_synthetic_town(imported, [])
+    towns.append(adapter)
+    ann = importer.load_scenarios(town_name, root) if use_scenarios else {}
+    for r in town_routes:
+      ep = compile_route(adapter, r.keypoints_xy, r.keypoints_yaw)
+      for rep in range(reps):
+        eps.append(ep)
+        ids.append(f"{r.route_id}_rep{rep}")
+        town_idx.append(ti)
+        town_names.append(town_name)
+        anns.append(ann)
+  if verbose:
+    print(f"compiled {len(eps)} episodes over {len(towns)} towns "
+          f"in {time.time() - t0:.0f}s", flush=True)
+
+  walker_sites = None
+  scenario_npcs = None
+  if use_scenarios:
+    towns_of_eps = [towns[ti] for ti in town_idx]
+    walker_sites, specs, scen_state, scenario_npcs = _scenario_setup(
+        cfg, anns, eps, towns_of_eps, seed, device=device)
+  maps, lanes, scene, state = build_batch(
+      cfg, towns, eps, seed=seed, n_vehicles=n_vehicles,
+      n_walkers=n_walkers, walker_sites=walker_sites,
+      town_of_episode=town_idx, scenario_npcs=scenario_npcs, device=device)
+  if use_scenarios:
+    scene = scene.replace(scenarios=specs)
+    state = state.replace(scenario=scen_state)
+  if agent_reset is not None:
+    state = state.replace(agent=agent_reset(cfg, len(eps), device=device))
+  t1 = time.time()
+  final = rollout_chunked(cfg, maps, lanes, scene, state, max_ticks,
+                          chunk=CARLA_CHUNK, policy=policy,
+                          generator=generator)
+  records = []
+  for i, (rid, tn) in enumerate(zip(ids, town_names)):
+    records += _records(cfg, tree_slice(scene, i), tree_slice(final, i),
+                        [rid], tn)
+  if verbose:
+    print(f"rollout: {len(eps)} episodes in {time.time() - t1:.0f}s",
+          flush=True)
+  return records, aggregate(records)
+
+
+def tree_slice(tree, i: int):
+  """Episode i of a batched struct, as a batch of one: every tensor leaf
+  with a leading axis is cut to [i:i+1]."""
+  return tree_map(lambda x: x[i:i + 1] if x.ndim >= 1 else x, tree)
 
 
 def write_endpoint(records, global_stats, path: str, meta: dict = None):

@@ -78,50 +78,66 @@ class SyntheticTown:
     return self.raster[Layer.JUNCTION, py, px] > 0
 
 
-def make_town(n_x: int = 4, n_y: int = 4, block: float = 120.0,
-              ppm: float = 4.0, margin: float = 30.0,
-              seed: int = 0) -> SyntheticTown:
-  """Build an n_x x n_y grid town. Its geometry does not depend on
-  `seed`; the seed only names the town."""
+def grid_layers(n_x: int = 4, n_y: int = 4, block: float = 120.0,
+                ppm: float = 4.0, margin: float = 30.0) -> dict:
+  """The surface masks [H,W] of an n_x x n_y grid town: road (junctions
+  included), sidewalk, the center marking and junction, with the street
+  coordinates xs, ys and the junction centers. Each street's masks are
+  the outer product of a row and a column test, so a 3,000 px town takes
+  seconds, not a full-grid pass per street."""
   xs = margin + np.arange(n_x) * block       # vertical street x coords
   ys = margin + np.arange(n_y) * block       # horizontal street y coords
   width = 2 * margin + (n_x - 1) * block
   height = 2 * margin + (n_y - 1) * block
   wpx, hpx = int(width * ppm), int(height * ppm)
-  world_offset = np.array([0.0, 0.0], np.float32)
-
-  gx, gy = np.meshgrid(np.arange(wpx) / ppm, np.arange(hpx) / ppm)
+  gx, gy = np.arange(wpx) / ppm, np.arange(hpx) / ppm
+  outer = lambda rows, cols: rows[:, None] & cols[None]
   road = np.zeros((hpx, wpx), bool)
   sidewalk = np.zeros_like(road)
-  lane_broken = np.zeros_like(road)
-  stopline = np.zeros_like(road)
+  center = np.zeros_like(road)
   junction = np.zeros_like(road)
 
   x0, x1 = xs[0] - JUNCTION_HALF, xs[-1] + JUNCTION_HALF
   y0, y1 = ys[0] - JUNCTION_HALF, ys[-1] + JUNCTION_HALF
+  span_x, span_y = (gx >= x0) & (gx <= x1), (gy >= y0) & (gy <= y1)
+  walk = lambda g, c: np.abs(np.abs(g - c) - (LANE_W + SIDEWALK_W / 2)) \
+      <= SIDEWALK_W / 2
   for y in ys:                                 # horizontal streets
-    road |= (np.abs(gy - y) <= LANE_W) & (gx >= x0) & (gx <= x1)
-    sidewalk |= (np.abs(np.abs(gy - y) - (LANE_W + SIDEWALK_W / 2))
-                 <= SIDEWALK_W / 2) & (gx >= x0) & (gx <= x1)
-    lane_broken |= (np.abs(gy - y) <= 0.15) & (gx >= x0) & (gx <= x1)
+    road |= outer(np.abs(gy - y) <= LANE_W, span_x)
+    sidewalk |= outer(walk(gy, y), span_x)
+    center |= outer(np.abs(gy - y) <= 0.15, span_x)
   for x in xs:                                 # vertical streets
-    road |= (np.abs(gx - x) <= LANE_W) & (gy >= y0) & (gy <= y1)
-    sidewalk |= (np.abs(np.abs(gx - x) - (LANE_W + SIDEWALK_W / 2))
-                 <= SIDEWALK_W / 2) & (gy >= y0) & (gy <= y1)
-    lane_broken |= (np.abs(gx - x) <= 0.15) & (gy >= y0) & (gy <= y1)
+    road |= outer(span_y, np.abs(gx - x) <= LANE_W)
+    sidewalk |= outer(span_y, walk(gx, x))
+    center |= outer(span_y, np.abs(gx - x) <= 0.15)
   sidewalk &= ~road
-  lane_all = lane_broken.copy()
 
   centers = np.array([[x, y] for x in xs for y in ys], np.float32)
   for cx, cy in centers:
-    junction |= (np.abs(gx - cx) <= JUNCTION_HALF) & \
-                (np.abs(gy - cy) <= JUNCTION_HALF)
+    junction |= outer(np.abs(gy - cy) <= JUNCTION_HALF,
+                      np.abs(gx - cx) <= JUNCTION_HALF)
   road |= junction            # junction interiors are drivable
   sidewalk &= ~road
   for cx, cy in centers:      # sidewalk ring around each junction corner
-    ring = (np.abs(gx - cx) <= JUNCTION_HALF + SIDEWALK_W) & \
-           (np.abs(gy - cy) <= JUNCTION_HALF + SIDEWALK_W)
+    ring = outer(np.abs(gy - cy) <= JUNCTION_HALF + SIDEWALK_W,
+                 np.abs(gx - cx) <= JUNCTION_HALF + SIDEWALK_W)
     sidewalk |= ring & ~road
+  return dict(road=road, sidewalk=sidewalk, center=center,
+              junction=junction, xs=xs, ys=ys, centers=centers)
+
+
+def make_town(n_x: int = 4, n_y: int = 4, block: float = 120.0,
+              ppm: float = 4.0, margin: float = 30.0,
+              seed: int = 0) -> SyntheticTown:
+  """Build an n_x x n_y grid town. Its geometry does not depend on
+  `seed`; the seed only names the town."""
+  g = grid_layers(n_x, n_y, block, ppm, margin)
+  road, sidewalk, junction = g["road"], g["sidewalk"], g["junction"]
+  xs, ys, centers = g["xs"], g["ys"], g["centers"]
+  lane_broken = g["center"]
+  lane_all = lane_broken.copy()
+  stopline = np.zeros_like(road)
+  world_offset = np.array([0.0, 0.0], np.float32)
 
   # traffic lights at even junctions, stop signs at some odd ones
   lights, stops = [], []

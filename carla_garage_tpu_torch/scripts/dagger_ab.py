@@ -14,9 +14,9 @@ and are scored by the same honest-density eval suite:
   python -m carla_garage_tpu_torch.scripts.dagger_ab \\
       --towns synth synth2 --eval-towns synth3 --segments 3 --seg-steps 2000
 
-The flags and defaults are the JAX script's; town names are checked
-before any datagen (only 'synth' / 'synth<N>' are ported). The table goes
-to results/torch/dagger_ab_plant_r5.json by default.
+The flags and defaults are the JAX script's; imported town names load
+from --assets-root. The table goes to results/torch/dagger_ab_plant_r5.json
+by default.
 """
 
 from __future__ import annotations
@@ -40,8 +40,7 @@ from carla_garage_tpu_torch.scripts.train_plant import (CHUNK,
                                                         plant_config,
                                                         plant_eval_suite)
 from carla_garage_tpu_torch.sim.datagen import collect_dagger_frames
-from carla_garage_tpu_torch.sim.scene_builder import (make_town_batch,
-                                                      require_ported_towns)
+from carla_garage_tpu_torch.sim.scene_builder import make_town_batch
 from carla_garage_tpu_torch.train.plant_train import (build_plant_dataset,
                                                       estimate_speed_weights,
                                                       train_plant)
@@ -57,7 +56,7 @@ def collect_dagger_ds(cfg, pcfg, args, model, params, town_name: str,
       cfg, town_name, batch=args.episodes, seed=seed,
       n_vehicles=args.n_vehicles, n_walkers=2, use_scenarios=True,
       min_route_m=args.min_route_m, max_route_m=args.max_route_m,
-      device=dev)
+      assets_root=args.assets_root, device=dev)
   policy = make_plant_policy(model, params, pcfg, direct=True,
                              brake_threshold=0.33)
   st = state.replace(agent=plant_agent_reset(cfg, args.episodes, device=dev))
@@ -132,6 +131,10 @@ def parse_args(argv=None):
                   default=["Town01", "Town02", "Town03", "Town04",
                            "Town05", "Town06"])
   ap.add_argument("--eval-towns", nargs="+", default=["Town02", "Town05"])
+  ap.add_argument("--assets-root", default=None,
+                  help="the CARLA asset root that imported town names "
+                       "(Town01-06) load from (default: "
+                       "$CGT_ASSETS_ROOT)")
   ap.add_argument("--eval-seeds", type=int, default=2)
   ap.add_argument("--eval-routes", type=int, default=8)
   ap.add_argument("--eval-max-ticks", type=int, default=10000)
@@ -148,7 +151,6 @@ def parse_args(argv=None):
 def run(args, eval_chunk: int = 512, device="cuda") -> dict:
   """The A/B of ``main`` on parsed arguments; returns the results dict
   (also written to --results)."""
-  require_ported_towns(list(args.towns) + list(args.eval_towns))
   dev = resolve_device(device)
   pcfg = plant_config()
   cfg = honest_cfg(args.n_vehicles)

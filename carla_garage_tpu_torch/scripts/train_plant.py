@@ -8,14 +8,13 @@ after each segment, keeping the segment with the best mean driving score.
       --frames 400 --steps 12000
 
 The flags and defaults are the JAX script's. The default towns are
-imported CARLA towns, which the port does not build yet: every name in
---towns and --eval-towns is checked before any datagen, and the run
-stops at once unless each is 'synth' or 'synth<N>'. Outputs go under
-checkpoints/torch/ and results/torch/ by default. Seeds are the JAX
-script's (shards ``1000*town_index+37k+5``, eval ``4321+11s``); the
-simulator's draws come from ``torch.Generator``s seeded with them, not
-from JAX keys, so the episodes are the JAX script's scenes driven with
-other noise.
+imported CARLA towns (Town01-06), loaded from --assets-root with their
+recovered lane graphs (``maps/importer.py``); 'synth' and 'synth<N>'
+name the procedural grid town. Outputs go under checkpoints/torch/ and
+results/torch/ by default. Seeds are the JAX script's (shards
+``1000*town_index+37k+5``, eval ``4321+11s``); the simulator's draws come
+from ``torch.Generator``s seeded with them, not from JAX keys, so the
+episodes are the JAX script's scenes driven with other noise.
 """
 
 from __future__ import annotations
@@ -38,8 +37,7 @@ from carla_garage_tpu_torch.models.plant import PlanTConfig
 from carla_garage_tpu_torch.sim.datagen import collect_expert_frames
 from carla_garage_tpu_torch.sim.episode import rollout_chunked
 from carla_garage_tpu_torch.sim.scene_builder import (_PAD_CACHE,
-                                                      make_town_batch,
-                                                      require_ported_towns)
+                                                      make_town_batch)
 from carla_garage_tpu_torch.sim.scoring import compute_scores
 from carla_garage_tpu_torch.structs import tree_map
 from carla_garage_tpu_torch.train.plant_train import (PlantDataset,
@@ -90,7 +88,8 @@ def datagen_shard(cfg, pcfg, args, town_name: str, seed: int,
       cfg, town_name, batch=args.episodes, seed=seed,
       n_vehicles=args.n_vehicles, n_walkers=args.n_walkers,
       use_scenarios=True, min_route_m=args.min_route_m,
-      max_route_m=args.max_route_m, device=dev)
+      max_route_m=args.max_route_m, assets_root=args.assets_root,
+      device=dev)
   if args.frames % CHUNK:
     raise ValueError(f"--frames {args.frames} is not a multiple of {CHUNK}")
   gen = torch.Generator(device=dev).manual_seed(seed)
@@ -164,7 +163,8 @@ def plant_eval_suite(cfg, model, params, pcfg, towns, seeds, n_routes,
       _, maps, lanes, scene, state = make_town_batch(
           cfg, t, batch=n_routes, seed=s, n_vehicles=args.n_vehicles,
           n_walkers=args.n_walkers, use_scenarios=True,
-          min_route_m=300.0, max_route_m=600.0, device=dev)
+          min_route_m=300.0, max_route_m=600.0,
+          assets_root=args.assets_root, device=dev)
       st = state.replace(agent=plant_agent_reset(cfg, n_routes, device=dev))
       final = rollout_chunked(cfg, maps, lanes, scene, st, max_ticks,
                               chunk=chunk, policy=policy,
@@ -202,6 +202,10 @@ def parse_args(argv=None):
                   default=["Town01", "Town02", "Town03", "Town04",
                            "Town05", "Town06"])
   ap.add_argument("--eval-towns", nargs="+", default=["Town02", "Town05"])
+  ap.add_argument("--assets-root", default=None,
+                  help="the CARLA asset root that imported town names "
+                       "(Town01-06) load from (default: "
+                       "$CGT_ASSETS_ROOT)")
   ap.add_argument("--eval-seeds", type=int, default=2)
   ap.add_argument("--eval-routes", type=int, default=8)
   ap.add_argument("--eval-max-ticks", type=int, default=10000)
@@ -220,7 +224,6 @@ def run(args, eval_chunk: int = 512, device="cuda") -> dict:
   """The loop of ``main`` on parsed arguments; returns the results dict
   (also written to --results). eval_chunk: the eval suite's ticks a
   chunk (the JAX script's 512)."""
-  require_ported_towns(list(args.towns) + list(args.eval_towns))
   dev = resolve_device(device)
   pcfg = plant_config()
   cfg = honest_cfg(args.n_vehicles)

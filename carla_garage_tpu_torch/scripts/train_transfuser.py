@@ -11,9 +11,10 @@ a final multi-seed eval and a regression floor.
 
 The flags and defaults are the JAX script's; the default model is the
 reference sensor spec (``TransfuserConfig()``), --micro the fast one.
-Town names are checked before any datagen (only 'synth' / 'synth<N>' are
-ported). Outputs go under checkpoints/torch/ and results/torch/ by
-default: ``{out}_step{N}``, ``{out}_dagger{r}`` and ``{out}`` (the best)
+Imported town names (Town01-06) load from --assets-root; 'synth' and
+'synth<N>' name the procedural grid town. Outputs go under
+checkpoints/torch/ and results/torch/ by default: ``{out}_step{N}``,
+``{out}_dagger{r}`` and ``{out}`` (the best)
 checkpoints, ``{out}_shards/<key>/`` (datagen shards, keyed by every
 argument that defines datagen) and ``{out}_trainstate.pt`` (written at
 each eval boundary: weights, optimizer, schedule, both samplers' states,
@@ -45,6 +46,7 @@ from carla_garage_tpu_torch.agents.sensor_agent import (
 from carla_garage_tpu_torch.bench import reduced_config
 from carla_garage_tpu_torch.config import DEFAULT_CONFIG
 from carla_garage_tpu_torch.device import resolve_device
+from carla_garage_tpu_torch.maps import importer
 from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
                                                       TransfuserConfig)
 from carla_garage_tpu_torch.scripts.train_plant import (CHUNK, batch_mean,
@@ -60,8 +62,7 @@ from carla_garage_tpu_torch.sim.datagen import (collect_dagger_frames,
                                                 target_speed_labels,
                                                 waypoint_labels)
 from carla_garage_tpu_torch.sim.episode import rollout_chunked
-from carla_garage_tpu_torch.sim.scene_builder import (make_town_batch,
-                                                      require_ported_towns)
+from carla_garage_tpu_torch.sim.scene_builder import make_town_batch
 from carla_garage_tpu_torch.sim.scoring import compute_scores
 from carla_garage_tpu_torch.structs import tree_map
 from carla_garage_tpu_torch.train.transfuser_train import (
@@ -76,6 +77,17 @@ BOUNDARY_EVAL_SEEDS = [321, 654]
 # arguments that name outputs or gate the result: they do not define the
 # run, so a resume may change them
 NOT_RUN_KEYS = ("out", "results", "floor", "cmdline")
+
+
+def town_hw(name: str, assets_root: str | None = None) -> tuple:
+  """A town's raster (height, width): one padded shape over every train
+  and eval town lets one set of tensor shapes serve them all. An imported
+  town's is its road layer's, read from the town as ``load_town`` gives
+  it (its disk cache needs no h5py)."""
+  if name.startswith("synth"):
+    return SYNTH_HW
+  town = importer.load_town(name, assets_root)
+  return tuple(town.raster.shape[1:])
 
 
 def model_config(args) -> TransfuserConfig:
@@ -124,7 +136,8 @@ def build_dataset(cfg, args, seed: int, town_name: str = "synth",
       n_vehicles=_n_vehicles(args, seed), n_walkers=2, pad_hw=pad_hw,
       crop_hw=crop_hw, crop_margin_m=args.crop_margin_m,
       min_route_m=args.min_route_m, max_route_m=args.max_route_m,
-      use_scenarios=not args.no_scenarios, device=dev)
+      use_scenarios=not args.no_scenarios, assets_root=args.assets_root,
+      device=dev)
   if args.frames % CHUNK:
     raise ValueError(f"--frames {args.frames} is not a multiple of {CHUNK}")
   gen = torch.Generator(device=dev).manual_seed(seed)
@@ -152,7 +165,8 @@ def build_dagger_dataset(cfg, args, tcfg, model, cam_grid, lid_f, lid_r,
       n_vehicles=_n_vehicles(args, seed), n_walkers=2, pad_hw=pad_hw,
       crop_hw=crop_hw, crop_margin_m=args.crop_margin_m,
       min_route_m=args.min_route_m, max_route_m=args.max_route_m,
-      use_scenarios=not args.no_scenarios, device=dev)
+      use_scenarios=not args.no_scenarios, assets_root=args.assets_root,
+      device=dev)
   n_lidar = lid_f.shape[0] * lid_f.shape[1]
   policy = make_transfuser_policy(model, None, tcfg, cam_grid, lid_f, lid_r,
                                   direct=True, bf16=True,
@@ -203,7 +217,7 @@ def closed_loop_eval(cfg, args, tcfg, model, params, cam_grid, lid_f, lid_r,
       n_vehicles=args.eval_n_vehicles, n_walkers=2,
       use_scenarios=not args.no_scenarios,
       pad_hw=pad_hw, crop_hw=crop_hw, crop_margin_m=args.crop_margin_m,
-      device=dev)
+      assets_root=args.assets_root, device=dev)
   n_lidar = lid_f.shape[0] * lid_f.shape[1]
   policy = make_transfuser_policy(model, params, tcfg, cam_grid, lid_f,
                                   lid_r, direct=True, bf16=True,
@@ -306,7 +320,7 @@ def cache_key(args, cfg, pad_hw) -> str:
               capacity=cfg.sim.max_vehicles, min_route_m=args.min_route_m,
               max_route_m=args.max_route_m, crop_px=args.crop_px,
               crop_margin_m=args.crop_margin_m, pad_hw=pad_hw,
-              no_scenarios=args.no_scenarios)
+              no_scenarios=args.no_scenarios, assets_root=args.assets_root)
   digest = hashlib.sha1(json.dumps(spec, sort_keys=True).encode())
   return f"{args.episodes}x{args.frames}_{digest.hexdigest()[:12]}"
 
@@ -349,10 +363,14 @@ def parse_args(argv=None):
                   default=["Town01", "Town02", "Town03", "Town04",
                            "Town05", "Town06"],
                   help="datagen worlds, cycled across --datasets shards: "
-                       "procedural 'synth'/'synthN' grids (imported towns "
-                       "are not ported)")
+                       "imported CARLA towns (--assets-root) or "
+                       "procedural 'synth'/'synthN' grids")
   ap.add_argument("--eval-towns", nargs="+", default=["Town03", "Town05"],
                   help="closed-loop eval worlds (held-out seeds)")
+  ap.add_argument("--assets-root", default=None,
+                  help="the CARLA asset root that imported town names "
+                       "(Town01-06) load from (default: "
+                       "$CGT_ASSETS_ROOT)")
   ap.add_argument("--final-eval-seeds", type=int, default=3,
                   help="eval batches per town for the final multi-seed "
                        "eval")
@@ -456,7 +474,6 @@ def run(args, eval_chunk: int = 512, eval_max_ticks: int = 6000,
   (also written to --results). eval_chunk and eval_max_ticks: the
   closed-loop evals' ticks a chunk and tick budget (the JAX script's 512
   and 6,000)."""
-  require_ported_towns(list(args.towns) + list(args.eval_towns))
   dev = resolve_device(device)
   key = run_key(args, eval_chunk=eval_chunk, eval_max_ticks=eval_max_ticks)
   trainstate_path = f"{args.out}_trainstate.pt"
@@ -479,7 +496,9 @@ def run(args, eval_chunk: int = 512, eval_max_ticks: int = 6000,
     crop_hw, pad_hw = (args.crop_px, args.crop_px), None
     print(f"route-corridor crops {crop_hw} over {all_towns}", flush=True)
   else:
-    crop_hw, pad_hw = None, SYNTH_HW
+    crop_hw = None
+    hws = [town_hw(t, args.assets_root) for t in all_towns]
+    pad_hw = (max(h for h, _ in hws), max(w for _, w in hws))
     print(f"common raster shape {pad_hw} over {all_towns}", flush=True)
   evals_kw = dict(pad_hw=pad_hw, crop_hw=crop_hw,
                   brake_threshold=args.eval_brake_threshold,

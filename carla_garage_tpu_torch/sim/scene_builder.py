@@ -8,21 +8,23 @@ work is numpy with the JAX package's calls in the same order, so the same
 seed gives the same arrays bit for bit; the tensors are made on the
 caller's device at the end.
 
-Towns: the procedural grid town, ``"synth"`` or ``"synth<N>"``. Imported
-CARLA towns need the town importer and its assets, which are not ported:
-their names raise ``NotImplementedError``.
+Towns: the procedural grid town, ``"synth"`` or ``"synth<N>"``, and the
+imported CARLA towns (``"Town01"`` ... ``"Town06"``), which
+``maps/importer.py`` loads from an asset root with their recovered lane
+graph and signalization.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
 from carla_garage_tpu_torch.config import GlobalConfig
 from carla_garage_tpu_torch.device import resolve_device
-from carla_garage_tpu_torch.maps import routing
+from carla_garage_tpu_torch.maps import importer, routing
 from carla_garage_tpu_torch.maps.synthetic import (SyntheticTown, make_town,
                                                    sample_route_keypoints)
 from carla_garage_tpu_torch.maps.town_map import (LaneGraph, Layer,
@@ -529,36 +531,33 @@ def crop_town_to_routes(town, episodes: list, crop_hw: tuple,
                              world_offset=off.astype(np.float32))
 
 
-def require_ported_towns(names) -> None:
-  """Raise NotImplementedError naming the first town that is not the
-  procedural grid town ('synth' or 'synth<N>'): imported CARLA towns need
-  the town importer and its assets, which are not ported. The entry
-  points call it on every town they will build before any work."""
-  for name in names:
-    if not name.startswith("synth"):
-      raise NotImplementedError(
-          f"town {name!r}: imported CARLA towns need the town importer and "
-          "its assets, which are not ported; use 'synth' or 'synth<N>'")
-
-
 def make_town_batch(cfg: GlobalConfig, town_name: str, batch: int = 4,
                     seed: int = 0, n_vehicles: int = 8, n_walkers: int = 2,
                     min_route_m: float = 250.0, max_route_m: float = 500.0,
-                    pad_hw: tuple | None = None,
+                    pad_hw: tuple | None = None, assets_root: str = None,
                     crop_hw: tuple | None = None,
                     crop_margin_m: float = 130.0,
                     use_scenarios: bool = False, device="cuda"):
   """Random routes on a named town -> (town, maps, lanes, scene, state),
-  tensors on `device`. 'synth' (or 'synth<N>' for a seeded variant) is the
-  procedural grid town. use_scenarios attaches all 7 scenario types
-  (``sim/scenario_wiring.py``) to the routes. max_route_m bounds the
-  lane-graph walks of imported towns, which are not ported: any other
-  town name raises NotImplementedError."""
-  require_ported_towns([town_name])
+  tensors on `device`. An imported CARLA town (Town01-06, from
+  `assets_root`, else $CGT_ASSETS_ROOT) gets random walks over
+  its recovered lane graph of `min_route_m` to `max_route_m`; 'synth' (or
+  'synth<N>' for a seeded variant) is the procedural grid town with its
+  lattice walker. use_scenarios attaches all 7 scenario types
+  (``sim/scenario_wiring.py``), an imported town's annotations included."""
   dev = resolve_device(device)
   rng = np.random.default_rng(seed)
-  t_seed = int(town_name[5:]) if town_name[5:].isdigit() else seed
-  town = make_town(seed=t_seed)
+  if town_name.startswith("synth"):
+    t_seed = int(town_name[5:]) if town_name[5:].isdigit() else seed
+    town = make_town(seed=t_seed)
+    origin = t_seed
+    is_conn = None
+  else:
+    # imported towns are seed-independent: their asset root names them
+    origin = os.path.abspath(importer.resolve_assets_root(assets_root))
+    imported = importer.load_town(town_name, origin)
+    town = importer.as_synthetic_town(imported)
+    is_conn = imported.lane_is_connector
   if pad_hw is not None and crop_hw is None:
     town = _padded_town(town, pad_hw)
   # with a crop, every episode's route stays inside one crop window: the
@@ -568,12 +567,22 @@ def make_town_batch(cfg: GlobalConfig, town_name: str, batch: int = 4,
       if crop_hw is not None else None
   union_lo = union_hi = None
   eps = []
+  use_grid_sampler = town_name.startswith("synth")
   for _ in range(batch):
     ep = None
     for _retry in range(128):
-      # the lattice walker of the grid town
-      res = sample_route_keypoints(town, rng, min_len_m=min_route_m)
-      if len(res[0]) < 4:
+      if use_grid_sampler:
+        # the lattice walker of the grid town: lane-graph walks there loop
+        # back to their start block
+        res = sample_route_keypoints(town, rng, min_len_m=min_route_m)
+        if len(res[0]) < 4:
+          res = None
+      else:
+        res = routing.sample_lane_route(
+            town.lane_polys, town.lane_successors, rng,
+            min_len_m=min_route_m, max_len_m=max_route_m,
+            is_connector=is_conn)
+      if res is None:
         continue
       # reject loop routes: a goal within 40 m of the spawn completes at
       # tick 0
@@ -599,10 +608,12 @@ def make_town_batch(cfg: GlobalConfig, town_name: str, batch: int = 4,
     town = crop_town_to_routes(town, eps, crop_hw, margin_m=margin_m)
   walker_sites = scenario_npcs = specs = scen_state = None
   if use_scenarios:
-    # the synthetic town has no annotations: the geometry-synthesized
-    # types only
+    # an imported town's annotations place Scenario1/3/4; the synthetic
+    # town has none, so it gets the geometry-synthesized types only
+    ann = {} if use_grid_sampler else importer.load_scenarios(
+        town_name, origin)
     walker_sites, specs, scen_state, scenario_npcs = \
-        build_benchmark_scenarios(cfg, town, eps, {}, seed, device=dev)
+        build_benchmark_scenarios(cfg, town, eps, ann, seed, device=dev)
   maps, lanes, scene, state = build_batch(
       cfg, town, eps, seed=seed, n_vehicles=n_vehicles,
       n_walkers=n_walkers, walker_sites=walker_sites,
@@ -612,11 +623,13 @@ def make_town_batch(cfg: GlobalConfig, town_name: str, batch: int = 4,
     state = state.replace(scenario=scen_state)
   # one device copy of a town's rasters and lanes for every batch built on
   # it (crops are per-batch windows, so only the town-wide lanes there);
-  # keyed by the town's effective seed and the device
+  # keyed by the town's origin (a grid town's effective seed, an imported
+  # town's asset root: one name from two roots is two towns) and the
+  # device
   if crop_hw is None:
-    key = ("devcache", town_name, t_seed, pad_hw, str(dev))
+    key = ("devcache", town_name, origin, pad_hw, str(dev))
     maps, lanes = _PAD_CACHE.setdefault(key, (maps, lanes))
   else:
     lanes = _PAD_CACHE.setdefault(
-        ("devcache_lanes", town_name, t_seed, str(dev)), lanes)
+        ("devcache_lanes", town_name, origin, str(dev)), lanes)
   return town, maps, lanes, scene, state

@@ -27,7 +27,7 @@ Phases, each of which fails the run if it fails:
      with every kernel's launch count set to 0 just before and read just
      after; no host sync in a tick;
   5. expert datagen (slice 2's main path, first half): the expert drives
-     the committed scene for 40 recorded frames (200 ticks); no host sync
+     the committed scene for 24 recorded frames (120 ticks); no host sync
      in a tick, every frame leaf finite, usable frames;
   6. training at full width (slice 2's main path, second half):
      TransfuserConfig() with the full 59,904-ray sweep, bf16, 4
@@ -49,22 +49,23 @@ Phases, each of which fails the run if it fails:
      training script's ``closed_loop_eval``): the port builds a 16-route
      scenario scene (100 NPCs, 2 walkers), the full-width bf16 TransFuser++
      with seeded random weights drives it through ``rollout_chunked``
-     (512 ticks in chunks of 256), then ``compute_scores`` -> records ->
+     (64 ticks in one chunk; phase 23 drives 1,024), then
+     ``compute_scores`` -> records ->
      ``aggregate``, written with ``write_endpoint`` and ``write_csv`` and
      read back; ms/tick (timed with torch's sync debug mode off), launch
      counts, the scenario rows triggered by type; then the host syncs
      (none in a tick, one a chunk) on a short chunked run under the sync
      debug mode, timed with the mode off and on;
   10. DAgger datagen (slice 4's main path, second half): that policy on
-     that scene through ``collect_dagger_frames``, one chunk of 20 frames
-     (100 ticks); no host sync in a tick, every frame leaf finite;
+     that scene through ``collect_dagger_frames``, 10 frames (50 ticks);
+     no host sync in a tick, every frame leaf finite;
   11. PlanT reference: 20 ticks of the micro PlanT policy (direct, creep)
      on phase 8's scene at B=2, on the card and on the CPU from the same
      weights and control-loss draws, every state leaf; then one micro
      PlanT train step (batch 32, float32, TF32 off) on both devices: the
      loss, every aux loss and every gradient;
   12. PlanT datagen and dataset (slice 5, ``scripts/train_plant.py``'s
-     recipe): the expert drives phase 9's scene for 100 frames in chunks
+     recipe): the expert drives phase 9's scene for 60 frames in chunks
      of 20, the quality gate keeps clean episodes, then
      ``build_plant_dataset`` at ``PlanTConfig()``; it fails if the train
      split holds fewer than one batch of 512;
@@ -79,11 +80,10 @@ Phases, each of which fails the run if it fails:
      its set-up and validation;
   14. PlanT closed-loop eval and DAgger: the trained model at the eval
      suite's point (direct, brake threshold 0.33, creep) drives phase 9's
-     scene through ``rollout_chunked`` (512 ticks in chunks of 256), then
+     scene through ``rollout_chunked`` (64 ticks in one chunk), then
      scores -> records; no host sync in a tick, no kernel launch; then
-     ``relabel_with_plant`` over the dataset, and one DAgger chunk of 20
-     frames with PlanT driving, built into a dataset with waypoint weight
-     0;
+     ``relabel_with_plant`` over the dataset, and 10 DAgger frames with
+     PlanT driving, built into a dataset with waypoint weight 0;
   15. the sensor agent's operating points on the committed scene, each
      with the full-width bf16 TransFuser++: ``stop_control``,
      ``jpeg_quality=95``, ``seq_len=2``, ``map_track`` and
@@ -95,11 +95,11 @@ Phases, each of which fails the run if it fails:
      on one tick's inputs;
   16. bench.py's operating points through the port's bench functions:
      the expert at B=256 (20 ticks a round) and the reduced sensor point
-     at B=128 (10 ticks a round), one warm-up round and two timed rounds
+     at B=128 (10 ticks a round), one warm-up round and one timed round
      each, with env-steps/s and ms/tick, every state leaf finite, 0 and 2
      raycast launches a tick; the raycast kernel against its plain
      version at the shapes the sensor point gave it (B=128); then the
-     stage profile of the reduced and the full point (3 repetitions);
+     stage profile of the reduced and the full point (2 repetitions);
   17. checkpoints: TransfuserConfig() and the PlanT recipe's config saved
      and loaded into fresh models on the card (state dicts bit-equal, one
      forward equal), and ``config_from_meta`` over every committed
@@ -109,15 +109,44 @@ Phases, each of which fails the run if it fails:
      for bit, no kernel launch;
   19. ``dagger_ab`` end to end: both arms, a verdict, waypoint weight 0
      on every DAgger sample;
-  20. ``train_transfuser`` end to end at TransfuserConfig() (bf16): the
+  20. imported towns: an asset root in the reference's layout in a
+     temporary directory: "Town01", a 7 x 7 grid of yellow-marked two-way
+     streets 115 m apart (3,000 x 3,000 px at 4 px/m), and "Town02", the
+     default 1,680 x 1,680 px grid, as h5 layers; a Longest6 route XML of
+     8 + 4 routes sampled by ``routing.sample_lane_route`` on each town's
+     lanes recovered without hints; scenario annotations (Scenario1/3/4
+     along the lanes, Scenario7-10 at the junctions' light positions).
+     Each town is then built as the benchmark loads it: ``load_town``
+     where h5py imports, else ``town_from_layers`` and the port's cache
+     writer into a temporary ``CGT_TOWN_CACHE``; the host seconds of each
+     recovery, the lanes, lights and stop signs;
+  21. imported-town reference: Town01 at B=2 with scenarios, 60 expert
+     ticks on the card and on the CPU from the same steer-noise and
+     control-loss draws, every state leaf;
+  22. ``run_benchmarks --honest --single-batch --towns Town01 Town02
+     --max-ticks 1024``: the expert drives the 12 routes (100 NPCs,
+     scenarios on) as one mixed-town batch through ``rollout_chunked``;
+     the endpoint JSON and CSV read back, every state leaf finite, no
+     kernel launch, one host sync a chunk and none a tick; ms/tick,
+     env-steps/s, DS;
+  23. ``run_benchmarks --agent transfuser --checkpoint <TransfuserConfig()
+     with seeded random weights, saved by the port> --honest --reps 2
+     --towns Town01 --max-ticks 1024``: 16 episodes at full width, bf16;
+     2 raycast launches a tick, every launch held against the plain
+     version on the card as the run goes (its ms/tick includes that
+     work, whose host seconds it prints) and the first of each shape
+     timed against it; ms/tick, DS;
+  24. ``train_transfuser`` end to end at TransfuserConfig() (bf16) on
+     ``--towns Town01 synth --eval-towns Town02`` of that asset root: the
      kernels' launches of every step, no host sync in a step, the step,
-     DAgger and best checkpoints and the results JSON; both kernels
-     against their plain versions at every shape the run gave them
-     (training, eval and DAgger batches); then the same
-     arguments again, which must take every shard from the cache, resume
-     the train state after the last BC step and run no BC step before its
-     DAgger round, where it is stopped;
-  21. the output: every tick-state leaf finite, ticks advanced.
+     DAgger and best checkpoints and the results JSON; both kernels held
+     against their plain versions at every launch and timed against them
+     at every shape the run gave them (training, eval and DAgger
+     batches); then the same arguments again, which must take every
+     shard from the cache, resume the train state after the last
+     BC step and run no BC step before its DAgger round, where it is
+     stopped (phase 20 before the imported towns came);
+  25. the output: every tick-state leaf finite, ticks advanced.
 
 Every phase prints its wall time. The last two lines of standard output
 are the ``kernels`` JSON and ``{"ok": true, "device": ...}``. A kernel's
@@ -130,10 +159,12 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -144,17 +175,18 @@ H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12      # fp32 outside the tensor cores
 WARMUP = 3                        # ticks before the timed ones
 TICKS = 12                        # timed ticks of the sensor-on tick
-DATAGEN_FRAMES = 40               # recorded frames, 5 ticks each
+DATAGEN_FRAMES = 24               # recorded frames, 5 ticks each
 MICRO_BATCHES = 4                 # frames_per_step: 4 x 16 = 64 samples
 TRAIN_STEPS = 3                   # timed full-width training steps
 SCENARIO_TICKS = 60               # expert ticks of the scenario reference
-EVAL_TICKS = 512                  # closed-loop eval: the script runs 6,000
-EVAL_CHUNK = 256                  # ticks in chunks of 512
+EVAL_TICKS = 64                   # closed-loop eval: the script runs 6,000
+EVAL_CHUNK = 64                   # ticks in chunks of 512; phase 23 runs
+                                  # 1,024 at full width
 SYNC_CHECK_CHUNKS = 2             # the eval's host-sync check: 2 chunks
 SYNC_CHECK_CHUNK = 8              # of 8 ticks
-DAGGER_FRAMES = 20                # one chunk of the DAgger collector
+DAGGER_FRAMES = 10                # the DAgger collector's frames
 PLANT_REF_TICKS = 20              # PlanT reference ticks at B=2
-PLANT_FRAMES = 100                # PlanT datagen: recorded frames,
+PLANT_FRAMES = 60                 # PlanT datagen: recorded frames,
 PLANT_CHUNK = 20                  # collected 20 at a time as the script
 PLANT_BATCH = 512                 # the r5 recipe's --batch
 PLANT_STEPS = 10                  # timed full-width PlanT steps
@@ -162,10 +194,10 @@ OP_WARMUP, OP_TICKS = 3, 4        # operating points: warm-up, timed ticks
 STOP_AHEAD_M = 1.0                # stop_control: the class-3 peak ahead
 BENCH_OBJ_TICKS = 20              # bench points: ticks a round (bench.py:
 BENCH_SENSOR_TICKS = 10           # 200 and 50), timed rounds (5 and 3)
-BENCH_ROUNDS = 2                  # after one warm-up round
-BENCH_PROFILE_REPS = 3            # stage profile repetitions (bench.py: 10)
-ENTRY_EVAL_CHUNK = 64             # the entry points' evals: ticks a chunk
-ENTRY_EVAL_TICKS = 64             # and in all (the scripts: 512, 6,000)
+BENCH_ROUNDS = 1                  # after one warm-up round
+BENCH_PROFILE_REPS = 2            # stage profile repetitions (bench.py: 10)
+ENTRY_EVAL_CHUNK = 32             # the entry points' evals: ticks a chunk
+ENTRY_EVAL_TICKS = 32             # and in all (the scripts: 512, 6,000)
 SMALL_EVAL = ["--eval-seeds", "1", "--eval-routes", "2", "--eval-max-ticks",
               str(ENTRY_EVAL_TICKS)]
 PLANT_ENTRY_ARGV = ["--towns", "synth", "synth2", "--eval-towns", "synth3",
@@ -178,12 +210,23 @@ DAGGER_AB_ARGV = ["--towns", "synth", "synth2", "--eval-towns", "synth3",
                   "--segments", "2", "--seg-steps", "10", "--shards", "1",
                   "--episodes", "16", "--frames", "20", "--dagger-frames",
                   "20", "--batch", "128"] + SMALL_EVAL
+# phase 20 on an imported town and the grid town, evaluated on another
+# imported town (the asset root of phase 21)
 TRANSFUSER_ENTRY_ARGV = [
-    "--towns", "synth", "synth2", "--eval-towns", "synth3", "--datasets",
+    "--towns", "Town01", "synth", "--eval-towns", "Town02", "--datasets",
     "2", "--episodes", "4", "--frames", "20", "--steps", "4",
     "--frames-per-step", "2", "--block-steps", "2", "--eval-every", "2",
     "--eval-routes", "2", "--final-eval-seeds", "1", "--dagger-rounds", "1",
     "--dagger-steps", "2", "--dagger-frames", "20"]
+# the imported towns of phases 21-24: grids of yellow-marked two-way
+# streets from maps/synthetic at 4 px/m, Town01 7 x 7 streets 115 m apart
+# (3,000 x 3,000 px), Town02 the default grid (1,680 x 1,680 px), with
+# 8 and 4 Longest6 routes
+IMPORTED_TOWNS = {"Town01": dict(n_x=7, n_y=7, block=115.0), "Town02": {}}
+IMPORTED_ROUTES = {"Town01": 8, "Town02": 4}
+CARLA_TICKS = 1024                # run_benchmarks --max-ticks: one chunk
+UNCHECKED_TICKS = 128             # the sensor benchmark's window timed
+                                  # without the launch check
 
 
 def log(*a):
@@ -846,15 +889,15 @@ def scenario_scene_b2(cfg):
   return maps, lanes, scene.replace(scenarios=sp), state
 
 
-def scenario_reference(cfg):
-  """60 expert ticks on the B=2 scenario scene, on the card and on the CPU
-  from the same draws."""
+def card_vs_cpu_expert(cfg, maps, lanes, scene, state, seed):
+  """SCENARIO_TICKS expert ticks of a scene on the card and on the CPU
+  from the same steer-noise and control-loss draws. Returns (the CPU's
+  final state, the worst float difference)."""
   from carla_garage_tpu_torch.sim.episode import sim_step
 
-  B = 2
-  maps, lanes, scene, state = scenario_scene_b2(cfg)
+  B = state.tick.shape[0]
   K = scene.scenarios.kind.shape[1]
-  gen = torch.Generator().manual_seed(6)
+  gen = torch.Generator().manual_seed(seed)
   draws = [{"steer_noise": torch.randn((B,), generator=gen),
             "control_loss": torch.randn((B, K), generator=gen)}
            for _ in range(SCENARIO_TICKS)]
@@ -866,8 +909,17 @@ def scenario_reference(cfg):
                     draws={k: v.to(dev) for k, v in d.items()})
     runs[dev] = st
   torch.cuda.synchronize()
-  worst = leaves_close(runs["cuda"], runs["cpu"], "scenarios, card vs CPU")
-  final = runs["cpu"]
+  worst = leaves_close(runs["cuda"], runs["cpu"], "card vs CPU")
+  return runs["cpu"], worst
+
+
+def scenario_reference(cfg):
+  """60 expert ticks on the B=2 scenario scene, on the card and on the CPU
+  from the same draws."""
+  B = 2
+  maps, lanes, scene, state = scenario_scene_b2(cfg)
+  K = scene.scenarios.kind.shape[1]
+  final, worst = card_vs_cpu_expert(cfg, maps, lanes, scene, state, seed=6)
   cl_ticks = final.scenario.ticks_active[:, K - 1].tolist()
   assert min(cl_ticks) > 0, cl_ticks
   log(f"  card vs CPU, {SCENARIO_TICKS} expert ticks with scenarios at "
@@ -880,8 +932,6 @@ def closed_loop_eval(cfg, kernels, args, card):
   """The closed-loop evaluation at full width on a 16-route scenario scene
   that the port builds. Returns (maps, lanes, scene, start state, policy,
   launches, ticks run)."""
-  import tempfile
-
   from carla_garage_tpu_torch.agents.sensor_agent import (
       make_transfuser_policy, sensor_agent_reset)
   from carla_garage_tpu_torch.eval import benchmark
@@ -1593,6 +1643,118 @@ def first_inputs_by_shape():
     out["fill"] = list(seen["fill"].values())
 
 
+@contextlib.contextmanager
+def every_launch_checked():
+  """While the body runs, hold every raycast and box-fill launch against
+  its plain version on the same inputs, bit for bit. Each check runs on a
+  side stream after the launch, on copies taken in order on the body's
+  stream, so that it overlaps the body's next kernels; the next check of
+  the same shapes waits for it, which bounds what the checks hold. The
+  comparisons stay on the card (no host sync a launch) and are read once
+  when the body ends, which fails if any launch differed. Launches made
+  under torch's sync debug mode are skipped. The raycast's plain version
+  (a Python loop of some 2,000 small operations over the box slots,
+  launch-bound) is captured once per input shape as a CUDA graph of those
+  same operations and replayed. Yields the counts: raycast, fill,
+  skipped, graphs, the host seconds spent on the checks and, at the end,
+  differing."""
+  from carla_garage_tpu_torch.ops import bev_fill as ops_bev_fill
+  from carla_garage_tpu_torch.ops.raycast import raycast_boxes_plain
+  from carla_garage_tpu_torch.sensors import bev as sensors_bev
+  from carla_garage_tpu_torch.sensors import raycast as sensors_raycast
+
+  n = {"raycast": 0, "fill": 0, "skipped": 0, "graphs": 0, "host_s": 0.0}
+  differs, graphs, done = [], {}, {}
+  side = torch.cuda.Stream()
+  real_rc, real_bev = sensors_raycast.raycast_boxes, sensors_bev.fill_boxes_bev
+  quiet = lambda: torch.cuda.get_sync_debug_mode() == 0
+
+  def after_last(key):
+    """The body's stream waits for the last check of `key`."""
+    if key in done:
+      torch.cuda.current_stream().wait_event(done[key])
+
+  def on_side(key, keep, check):
+    """check() -> a bool tensor, on the side stream after the body's work
+    so far; `keep` are the tensors it reads."""
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+      differs.append(check())
+      done[key] = side.record_event()
+    for x in keep:
+      x.record_stream(side)
+
+  def graph_for(key, xs):
+    """(graph, static inputs, outputs) of raycast_boxes_plain at the
+    shapes of `xs`, captured on first use."""
+    if key not in graphs:
+      static = [x.clone() for x in xs]
+      warm = torch.cuda.Stream()
+      warm.wait_stream(torch.cuda.current_stream())
+      with torch.cuda.stream(warm):
+        raycast_boxes_plain(*static)               # warm-up off the graph
+      torch.cuda.current_stream().wait_stream(warm)
+      graph = torch.cuda.CUDAGraph()
+      with torch.cuda.graph(graph):
+        out = raycast_boxes_plain(*static)
+      graphs[key] = (graph, static, out)
+      n["graphs"] += 1
+    return graphs[key]
+
+  def chk_rc(o, d, b):
+    t, c = real_rc(o, d, b)
+    if not quiet():
+      n["skipped"] += 1
+      return t, c
+    t0 = time.perf_counter()
+    key = ("raycast",) + tuple(tuple(x.shape) for x in (o, d, b))
+    after_last(key)                     # its graph's inputs are free again
+    graph, static, (t_ref, c_ref) = graph_for(key, (o, d, b))
+    for dst, x in zip(static, (o, d, b)):
+      dst.copy_(x)
+    t_k, c_k = t.clone(), c.clone()
+
+    def check():
+      graph.replay()
+      return (t_k != t_ref).any() | (c_k != c_ref).any()
+    on_side(key, (t_k, c_k), check)
+    n["raycast"] += 1
+    n["host_s"] += time.perf_counter() - t0
+    return t, c
+
+  def chk_bev(cx, cy, yaw, ex, ey, cls, valid, h=256, w=256):
+    out = real_bev(cx, cy, yaw, ex, ey, cls, valid, h=h, w=w)
+    if not quiet():
+      n["skipped"] += 1
+      return out
+    t0 = time.perf_counter()
+    key = ("fill", tuple(cx.shape), h, w)
+    after_last(key)
+    xs = [x.clone() for x in (cx, cy, yaw, ex, ey, cls, valid, out)]
+
+    def check():
+      cx_, cy_, yaw_, ex_, ey_, cls_, valid_, out_ = xs
+      boxes = ops_bev_fill.pack_boxes(cx_, cy_, torch.cos(yaw_),
+                                      torch.sin(yaw_), ex_, ey_, cls_,
+                                      valid_)
+      return (out_ != ops_bev_fill.fill_boxes_bev_plain(boxes, h, w)).any()
+    on_side(key, xs, check)
+    n["fill"] += 1
+    n["host_s"] += time.perf_counter() - t0
+    return out
+
+  sensors_raycast.raycast_boxes, sensors_bev.fill_boxes_bev = chk_rc, chk_bev
+  try:
+    yield n
+  finally:
+    sensors_raycast.raycast_boxes, sensors_bev.fill_boxes_bev = real_rc, \
+        real_bev
+  torch.cuda.current_stream().wait_stream(side)
+  n["differing"] = int(torch.stack(differs).sum()) if differs else 0
+  assert n["differing"] == 0, ("a kernel launch differs from its plain "
+                               "version", n)
+
+
 def check_path_inputs(path, recorded):
   """Each kernel against its plain version (bit-equal, timed) at every
   shape recorded on a path. Returns (raycast max|err|, fill max|err|)."""
@@ -1652,8 +1814,6 @@ def checkpoints_round_trip():
   """Save TransfuserConfig() and plant_config() models and load them into
   fresh models on the card: state dicts bit-equal, one forward equal;
   config_from_meta over every committed checkpoints/*/meta.json."""
-  import tempfile
-
   from carla_garage_tpu_torch.models.plant import PlanT
   from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
                                                         TransfuserConfig)
@@ -1716,8 +1876,6 @@ def checkpoints_round_trip():
 def entry_plant(kernels, card):
   """train_plant end to end at plant_config() on synthetic towns at a cut
   depth. Returns the launches."""
-  import tempfile
-
   from carla_garage_tpu_torch.scripts import train_plant as tp
   from carla_garage_tpu_torch.utils.checkpoint import (cpu_state,
                                                        load_checkpoint)
@@ -1761,8 +1919,6 @@ def entry_plant(kernels, card):
 def entry_dagger_ab(kernels, card):
   """dagger_ab end to end at a cut depth: both arms, a verdict, waypoint
   weight 0 on every DAgger sample. Returns the launches."""
-  import tempfile
-
   from carla_garage_tpu_torch.scripts import dagger_ab as da
 
   dagger_sets = []
@@ -1796,17 +1952,18 @@ def entry_dagger_ab(kernels, card):
   return n
 
 
-def entry_transfuser(kernels, card):
+def entry_transfuser(kernels, card, root):
   """train_transfuser end to end at TransfuserConfig() (bf16) at a cut
-  depth, then once more with the same arguments, which must take every
-  shard from the cache, resume the train state after the last BC step and
-  run no BC step; it is stopped where its DAgger round begins, which
-  would repeat the first run's (the CPU tests run a resumed call to its
-  end and hold it to an uninterrupted one). Both kernels are held against their plain versions at
-  every shape the first run gave them. Returns (the first run's
-  launches, raycast max|err|, fill max|err|)."""
-  import tempfile
-
+  depth, on the imported Town01 and the grid town with evals on the
+  imported Town02 of the asset root `root`, then once more with the same
+  arguments, which must take every shard from the cache, resume the train
+  state after the last BC step and run no BC step; it is stopped where
+  its DAgger round begins, which would repeat the first run's (the CPU
+  tests run a resumed call to its end and hold it to an uninterrupted
+  one). Both kernels are held against their plain versions at every
+  launch of the first run (every_launch_checked), and timed against them
+  at every shape it gave them. Returns (the first run's launches, raycast
+  max|err|, fill max|err|)."""
   from carla_garage_tpu_torch.scripts import train_transfuser as tf
   from carla_garage_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -1846,7 +2003,8 @@ def entry_transfuser(kernels, card):
     raise ReachedDagger
 
   args = lambda tmp: tf.parse_args(TRANSFUSER_ENTRY_ARGV + [
-      "--out", f"{tmp}/tf", "--results", f"{tmp}/tf.json"])
+      "--out", f"{tmp}/tf", "--results", f"{tmp}/tf.json",
+      "--assets-root", root])
   n_bc, n_dag = 4, 2
   K = 2
   with tempfile.TemporaryDirectory() as tmp:
@@ -1854,11 +2012,16 @@ def entry_transfuser(kernels, card):
     tf.load_trainstate = load
     try:
       t0 = time.perf_counter()
-      with first_inputs_by_shape() as recorded:
+      with every_launch_checked() as checked, \
+          first_inputs_by_shape() as recorded:
         out, n = launches_during(kernels, lambda: tf.run(
             args(tmp), eval_chunk=ENTRY_EVAL_CHUNK,
             eval_max_ticks=ENTRY_EVAL_TICKS))
       dt = time.perf_counter() - t0
+      log(f"  launches checked against the plain versions (the sync-"
+          f"checked step's skipped): {checked}")
+      assert checked["raycast"] + checked["fill"] + checked["skipped"] == \
+          n["raycast_boxes"] + n["fill_boxes_bev"], (checked, n)
       assert len(steps) == n_bc + n_dag and len(built) == 2, (steps, built)
       assert all(s == {"raycast_boxes": 2 * K, "fill_boxes_bev": K}
                  for s in steps), steps
@@ -1908,6 +2071,238 @@ def entry_transfuser(kernels, card):
       tf.make_transfuser_train_step, tf.build_dataset = real_make, real_build
       tf.load_trainstate, tf.build_dagger_dataset = real_load, real_dagger
   return n, rc_err, fill_err
+
+
+def imported_towns(root):
+  """Phase 21: an asset root in the reference's layout under `root` with
+  the IMPORTED_TOWNS. Each town's lanes are first recovered without route
+  or signal hints, to sample its routes (routing.sample_lane_route) and
+  place its scenario sites; then the route XML and the annotations are
+  written and the town is built as the benchmark loads it: through
+  load_town where h5py imports, else through town_from_layers and the
+  port's cache writer."""
+  import os
+
+  from carla_garage_tpu_torch.maps import importer, routing
+
+  try:
+    import h5py  # noqa: F401
+    have_h5 = True
+  except ImportError:
+    have_h5 = False
+  log(f"  h5py {'imports' if have_h5 else 'does not import'}: the towns go "
+      + ("through h5 files and load_town" if have_h5 else
+         "through town_from_layers and the port's cache writer into "
+         f"{os.environ['CGT_TOWN_CACHE']}"))
+  layers, routes, public, junction = {}, [], {}, {}
+  for ti, (name, spec) in enumerate(IMPORTED_TOWNS.items()):
+    t0 = time.perf_counter()
+    ppm, off = 4.0, np.zeros(2, np.float32)
+    arrays = importer.grid_town_arrays(ppm=ppm, **spec)
+    if have_h5:
+      importer.write_town_h5(root, name, arrays, ppm, off)
+    layers[name] = (arrays, ppm, off)
+    t1 = time.perf_counter()
+    pre = importer.town_from_layers(name, importer.layers_from_arrays(arrays),
+                                    ppm, off, root)
+    t2 = time.perf_counter()
+    rng = np.random.default_rng(ti)
+    n = 0
+    while n < IMPORTED_ROUTES[name]:
+      res = routing.sample_lane_route(pre.lane_polys, pre.lane_successors,
+                                      rng, min_len_m=250.0, max_len_m=500.0,
+                                      is_connector=pre.lane_is_connector)
+      if res is not None and np.linalg.norm(res[0][-1] - res[0][0]) >= 40.0:
+        routes.append((str(len(routes)), name, *res))
+        n += 1
+    # Scenario1/3/4 along every third real lane each; the lights' approach
+    # points of every fourth junction as Scenario10 (unsignalized), the
+    # others as Scenario7/8/9 (signalized)
+    lanes = [p for p, c in zip(pre.lane_polys, pre.lane_is_connector)
+             if not c]
+    deg = lambda p: float(np.degrees(np.arctan2(*(p[-1] - p[0])[::-1])))
+    public[name] = {k: [(float(x), float(y), deg(p)) for p in lanes[i::3]
+                        for x, y in p[1:-1:4]]
+                    for i, k in enumerate(("Scenario1", "Scenario3",
+                                           "Scenario4"))}
+    # a junction's lights: those within 25 m of its first light
+    grp = np.full(len(pre.light_pos), -1)
+    for k in range(len(grp)):
+      if grp[k] < 0:
+        grp[(np.linalg.norm(pre.light_pos - pre.light_pos[k], axis=1) < 25.0)
+            & (grp < 0)] = grp.max() + 1
+    sites = [(float(x), float(y), float(np.degrees(a)))
+             for (x, y), a in zip(pre.light_pos, pre.light_yaw)]
+    junction[name] = {f"Scenario{7 + m}": [
+        x for x, j in zip(sites, grp) if j % 4 == m] for m in range(4)}
+    log(f"  {name}: layers {arrays['road'].shape} at {ppm} px/m made in "
+        f"{t1 - t0:.1f} s; lanes recovered without hints in {t2 - t1:.1f} s "
+        f"(host): {len(pre.lane_polys)} lanes, {len(pre.light_pos)} lights;"
+        f" {IMPORTED_ROUTES[name]} routes sampled")
+  data = os.path.join(root, importer.ROUTES_DIR)
+  importer.write_routes_xml(os.path.join(data, "longest6.xml"), routes)
+  scen = os.path.join(data, "scenarios")
+  importer.write_scenarios_json(
+      os.path.join(scen, "all_towns_traffic_scenarios_public.json"), public)
+  for name, sites in junction.items():
+    importer.write_scenarios_json(
+        os.path.join(scen, f"{name.lower()}_all_scenarios.json"),
+        {name: sites})
+
+  for name, (arrays, ppm, off) in layers.items():
+    t0 = time.perf_counter()
+    if have_h5:
+      town = importer.load_town(name, root)
+    else:
+      town = importer.town_from_layers(
+          name, importer.layers_from_arrays(arrays), ppm, off, root)
+      importer.write_town_cache(town, root)
+    dt = time.perf_counter() - t0
+    hints = importer.signal_hints_for(name, root)
+    log(f"  {name}: built with route and signal hints in {dt:.1f} s (host"
+        f"): {len(town.lane_polys)} lanes ({int(town.lane_is_connector.sum())}"
+        f" connectors), {len(town.light_pos)} lights, {len(town.stop_pos)} "
+        f"stop signs; signal hints "
+        f"{sorted((k, len(v)) for k, v in hints.items())}")
+    assert len(town.light_pos) and len(town.stop_pos), name
+  importer._TOWN_CACHE.clear()     # the benchmark reads the disk cache
+
+
+def imported_reference(cfg, root):
+  """Phase 22: 60 expert ticks with scenarios on an imported town at B=2,
+  on the card and on the CPU from the same draws."""
+  from carla_garage_tpu_torch.sim.scene_builder import make_town_batch
+
+  t0 = time.perf_counter()
+  _, maps, lanes, scene, state = make_town_batch(
+      cfg, "Town01", batch=2, seed=1, n_vehicles=8, n_walkers=2,
+      use_scenarios=True, assets_root=root, device="cpu")
+  log(f"  Town01 scene at B=2 built on the host in "
+      f"{time.perf_counter() - t0:.2f} s")
+  final, worst = card_vs_cpu_expert(cfg, maps, lanes, scene, state, seed=7)
+  log(f"  card vs CPU, {SCENARIO_TICKS} expert ticks with scenarios on "
+      f"Town01 at B=2: max |diff| of float leaves {worst:.3g} (bar 1e-4 abs "
+      f"+ 1e-4 rel), ints and bools equal; lights "
+      f"{int(scene.lights.valid.sum())}"
+      f", stop signs {int(scene.stops.valid.sum())}; rows triggered "
+      f"(triggered/valid): {scenario_counts(scene, final)}")
+  assert bool((final.tick == SCENARIO_TICKS).all() | final.done.any())
+
+
+def random_checkpoint(path):
+  """Save TransfuserConfig() with weights from torch seed 0 as a port
+  checkpoint at `path`."""
+  from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
+                                                        TransfuserConfig)
+  from carla_garage_tpu_torch.utils.checkpoint import save_checkpoint
+  with torch.random.fork_rng(devices=[]):
+    torch.manual_seed(0)
+    model = LidarCenterNet(TransfuserConfig())
+  save_checkpoint(path, model, meta={"model": "transfuser", "config":
+                                     dataclasses.asdict(TransfuserConfig())})
+  return path
+
+
+def carla_benchmark(path, argv, n_episodes, b1, root, kernels, card):
+  """run_benchmarks on the imported towns of `root` with `argv` (phases
+  22-23): the endpoint JSON and CSV read back, every state leaf finite,
+  b1 raycast launches a tick and no box fill, every launch held against
+  the plain versions as it runs (every_launch_checked) and the first of
+  each shape timed against them; ms/tick, env-steps/s, DS. With a
+  kernel, the check's replays run in that time: a window of
+  UNCHECKED_TICKS from the same start and draws, unchecked, gives the
+  tick's own ms/tick. Without a kernel (the expert), the host syncs: one
+  a chunk on a short chunked run from the same start, none a tick.
+  Returns (launches, ticks, raycast max|err|)."""
+  import csv
+
+  from carla_garage_tpu_torch.eval import benchmark
+  from carla_garage_tpu_torch.scripts import run_benchmarks as rb
+  from carla_garage_tpu_torch.sim import episode
+
+  runs, chunks = [], []
+  real_chunked, real_rollout = benchmark.rollout_chunked, episode.rollout
+
+  def counted(*a, **kw):
+    chunks.append(1)
+    return real_rollout(*a, **kw)
+
+  def timed(cfg, maps, lanes, scene, state, max_ticks, chunk, policy,
+            generator):
+    chunks.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final = real_chunked(cfg, maps, lanes, scene, state, max_ticks,
+                         chunk=chunk, policy=policy, generator=generator)
+    torch.cuda.synchronize()
+    runs.append(dict(cfg=cfg, maps=maps, lanes=lanes, scene=scene,
+                     start=state, final=final, policy=policy,
+                     ticks=len(chunks) * chunk,
+                     dt=time.perf_counter() - t0))
+    return final
+
+  t0 = time.perf_counter()
+  args = rb.parse_args(argv)
+  benchmark.rollout_chunked, episode.rollout = timed, counted
+  try:
+    with every_launch_checked() as checked, \
+        first_inputs_by_shape() as recorded:
+      out, n = launches_during(kernels, lambda: rb.run(args,
+                                                       assets_root=root))
+  finally:
+    benchmark.rollout_chunked, episode.rollout = real_chunked, real_rollout
+  run, = runs
+  res = out["longest6"]
+  back = json.loads(pathlib.Path(res["json"]).read_text())
+  assert back["_checkpoint"]["records"] == res["records"]
+  assert len(res["records"]) == n_episodes == run["start"].tick.shape[0]
+  with open(res["csv"]) as f:
+    rows = list(csv.reader(f))
+  assert [r[0] for r in rows[1:]] == [r["route_id"] for r in res["records"]]
+  g = res["global"]
+  n_leaves = finite_leaves(run["final"], path)
+  log(f"  {args.cmdline}")
+  log(f"  {path}: B={n_episodes}, {run['ticks']} ticks in "
+      f"{run['ticks'] // benchmark.CARLA_CHUNK} chunk(s) of "
+      f"{benchmark.CARLA_CHUNK}: {1e3 * run['dt'] / run['ticks']:.2f} "
+      f"ms/tick, {n_episodes * run['ticks'] / run['dt']:.1f} env-steps/s "
+      f"{'(every launch checked) ' if b1 else ''}({card}); DS {g['driving_score']:.3f}, RC "
+      f"{g['route_completion']:.3f}, IS {g['infraction_score']:.3f}; "
+      f"statuses {sorted({r['status'] for r in res['records']})}; launches "
+      f"{n}; {n_leaves} state leaves finite; endpoint (meta "
+      f"{sorted(back['meta'])}) and CSV read back; "
+      f"{time.perf_counter() - t0:.1f} s with the set-up")
+  log(f"  launches checked against the plain versions: {checked}")
+  assert n == {"raycast_boxes": b1 * run["ticks"], "fill_boxes_bev": 0}, n
+  assert checked["raycast"] == n["raycast_boxes"], checked
+  rc_err = check_path_inputs(path, recorded)[0]
+  if b1:
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    real_chunked(run["cfg"], run["maps"], run["lanes"], run["scene"],
+                 run["start"], UNCHECKED_TICKS, chunk=UNCHECKED_TICKS,
+                 policy=run["policy"], generator=gen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    log(f"  {path}, unchecked: the first {UNCHECKED_TICKS} ticks again from "
+        f"the same start and draws in one chunk, no launch checked: "
+        f"{1e3 * dt / UNCHECKED_TICKS:.2f} ms/tick, "
+        f"{n_episodes * UNCHECKED_TICKS / dt:.1f} env-steps/s ({card})")
+  else:
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    syncs = host_syncs(lambda: real_chunked(
+        run["cfg"], run["maps"], run["lanes"], run["scene"], run["start"],
+        16, chunk=8, policy=run["policy"], generator=gen))
+    tick_syncs = host_syncs(lambda: episode.sim_step(
+        run["cfg"], run["maps"], run["lanes"], run["scene"], run["final"],
+        run["policy"], generator=gen))
+    log(f"  host syncs in 16 ticks (2 chunks of 8): {len(syncs)} {syncs}; "
+        f"in one tick: {len(tick_syncs)} {tick_syncs}")
+    assert len(syncs) == 2 and all("episode.py" in x for x in syncs), \
+        "one host sync a chunk, the done check"
+    assert not tick_syncs, "a benchmark tick must not wait for the device"
+  return n, run["ticks"], rc_err
 
 
 def main():
@@ -2084,9 +2479,41 @@ def main():
   clock.start("dagger_ab end to end")
   dagger_ab_launches = entry_dagger_ab(kernels, card)
 
-  clock.start("train_transfuser end to end at full width, then resumed")
-  transfuser_entry_launches, err, f_err = entry_transfuser(kernels, card)
+  assets = tempfile.TemporaryDirectory()
+  root = f"{assets.name}/reference"
+  os.environ["CGT_TOWN_CACHE"] = f"{assets.name}/town_cache"
+  clock.start("imported towns: asset root, lane-graph recovery")
+  imported_towns(root)
+
+  clock.start("imported-town reference, card vs CPU")
+  imported_reference(cfg, root)
+
+  common = ["--honest", "--benchmarks", "longest6", "--max-ticks",
+            str(CARLA_TICKS), "--results-dir", f"{assets.name}/results"]
+  carla_launches, carla_ticks = {}, {}
+  clock.start("run_benchmarks, the expert, one batch over Town01 and "
+              "Town02")
+  carla_launches["bench_carla_expert"], carla_ticks["bench_carla_expert"], \
+      err = carla_benchmark(
+          "bench_carla_expert", common + ["--single-batch", "--towns",
+                                          "Town01", "Town02"],
+          sum(IMPORTED_ROUTES.values()), 0, root, kernels, card)
+  clock.start("run_benchmarks, the sensor agent at full width on Town01")
+  ckpt = random_checkpoint(f"{assets.name}/tf_random")
+  carla_launches["bench_carla_sensor"], carla_ticks["bench_carla_sensor"], \
+      err = carla_benchmark(
+          "bench_carla_sensor", common + [
+              "--agent", "transfuser", "--checkpoint", ckpt, "--reps", "2",
+              "--towns", "Town01"],
+          2 * IMPORTED_ROUTES["Town01"], 2, root, kernels, card)
+  rc_err = max(rc_err, err)
+
+  clock.start("train_transfuser end to end at full width on Town01 and "
+              "synth, then resumed")
+  transfuser_entry_launches, err, f_err = entry_transfuser(kernels, card,
+                                                           root)
   rc_err, fill_err = max(rc_err, err), max(fill_err, f_err)
+  assets.cleanup()
 
   clock.start("output")
   n_leaves = 0
@@ -2115,7 +2542,11 @@ def main():
                         bench_launches["bench_sensor_reduced"][name],
                     "entry_plant": plant_entry_launches[name],
                     "entry_dagger_ab": dagger_ab_launches[name],
-                    "entry_transfuser": transfuser_entry_launches[name]}
+                    "entry_transfuser": transfuser_entry_launches[name],
+                    "bench_carla_expert":
+                        carla_launches["bench_carla_expert"][name],
+                    "bench_carla_sensor":
+                        carla_launches["bench_carla_sensor"][name]}
              for name in kernels}
   log(f"  launches: {by_path} (tick: {TICKS} ticks, train_step: "
       f"{TRAIN_STEPS} steps, eval: {eval_ticks} ticks, dagger: "
@@ -2124,6 +2555,8 @@ def main():
       f"{plant_dagger_ticks} ticks, op_points: {op_ticks} ticks, "
       f"bench_object: {bench_ticks['bench_object']} ticks, "
       f"bench_sensor_reduced: {bench_ticks['bench_sensor_reduced']} ticks, "
+      f"bench_carla_expert: {carla_ticks['bench_carla_expert']} ticks, "
+      f"bench_carla_sensor: {carla_ticks['bench_carla_sensor']} ticks, "
       f"entry_*: whole runs)")
   clock.stop()
 

@@ -14,11 +14,13 @@ train_plant.py and dagger_ab.py) against the JAX scripts' own functions
   draws replayed: every row's scores to 1e-5 relative, counts equal.
 - ``collect_dagger_ds``: waypoint weight 0 on every sample; ``run_arm``'s
   datasets, ``run``'s checkpoint selection and results keys.
-- Imported town names stop every entry point before any datagen.
+- Imported town names: built from an asset root; an absent root stops every
+  entry point before any datagen and any results file.
 - ``make_town_batch("synth<N>")`` and a two-town ``build_batch`` as
   ``tests/test_multi_town.py`` builds it: bit-equal to JAX's.
 """
 
+import argparse
 import dataclasses
 import json
 import pathlib
@@ -63,7 +65,7 @@ B = 2
 T = lambda a: torch.from_numpy(np.array(a))
 ARGS = types.SimpleNamespace(episodes=B, n_vehicles=6, n_walkers=2,
                              min_route_m=300.0, max_route_m=500.0, frames=20,
-                             dagger_frames=20)
+                             dagger_frames=20, assets_root=None)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -346,22 +348,52 @@ def pt_micro():
   return micro_plant()
 
 
+class Stop(Exception):
+  pass
+
+
 @pytest.mark.parametrize("entry", ["train_plant", "dagger_ab",
                                    "train_transfuser"])
 def test_imported_towns_stop_before_any_datagen(entry, monkeypatch,
                                                 tmp_path):
-  def never(*a, **kw):
-    raise AssertionError("datagen ran")
+  """An imported town name from an absent asset root stops each entry
+  point before any datagen and before any results file; from an asset
+  root that holds it, the first datagen shard is built on that town."""
+  from test_torch_port_importer import write_asset_root
+  monkeypatch.setenv("CGT_TOWN_CACHE", str(tmp_path / "cache"))
+  root = str(tmp_path / "reference")
+  write_asset_root(root)
+  built = []
+
+  def first_shard(cfg, *a, **kw):
+    args = next(x for x in a if isinstance(x, argparse.Namespace))
+    name = kw.get("town_name") or next(x for x in a if isinstance(x, str))
+    town, *_ = scene_builder.make_town_batch(
+        cfg, name, batch=1, min_route_m=90.0, max_route_m=200.0,
+        assets_root=args.assets_root, device="cpu")
+    built.append((name, town.raster.shape))
+    raise Stop
 
   for mod, name in ((tp, "datagen_shard"), (da, "datagen_shard"),
                     (tf, "build_dataset")):
-    monkeypatch.setattr(mod, name, never)
+    monkeypatch.setattr(mod, name, first_shard)
   mod = {"train_plant": tp, "dagger_ab": da, "train_transfuser": tf}[entry]
-  for argv in ([], ["--towns", "synth", "synth2", "--eval-towns", "synth3",
-                    "Town05"]):
-    args = mod.parse_args(argv + ["--results", str(tmp_path / "r.json")])
-    with pytest.raises(NotImplementedError, match="synth<N>"):
-      mod.run(args, device="cpu")
+  extra = ["--crop-px", "0", "--micro"] if entry == "train_transfuser" \
+      else []
+  argv = ["--towns", "Town02", "--eval-towns", "synth3", "Town02",
+          "--results", str(tmp_path / "r.json"), "--out",
+          str(tmp_path / "ck"), "--assets-root",
+          str(tmp_path / "absent")] + extra
+  if entry == "dagger_ab":
+    argv.remove("--out")
+    argv.remove(str(tmp_path / "ck"))
+  with pytest.raises(OSError):
+    mod.run(mod.parse_args(argv), device="cpu")
+  assert not built and not (tmp_path / "r.json").exists()
+  argv[argv.index("--assets-root") + 1] = root
+  with pytest.raises(Stop):
+    mod.run(mod.parse_args(argv), device="cpu")
+  assert built == [("Town02", (9, 600, 360))]
   assert not (tmp_path / "r.json").exists()
 
 

@@ -174,7 +174,8 @@ def test_one_step_object_serves_every_dataset(setup):  # noqa: F811
 def _script_args(**kw):
   a = dict(episodes=B, frames=20, min_vehicles=4, max_vehicles=8,
            crop_margin_m=130.0, min_route_m=250.0, max_route_m=500.0,
-           no_scenarios=False, eval_n_vehicles=8, dagger_frames=20)
+           no_scenarios=False, eval_n_vehicles=8, dagger_frames=20,
+           assets_root=None)
   a.update(kw)
   return types.SimpleNamespace(**a)
 

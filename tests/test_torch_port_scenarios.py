@@ -275,14 +275,27 @@ def test_make_synthetic_batch_matches_jax_bit_for_bit(built):
   _compare_batches(j[1:], t[1:], expect_scenarios=False)
 
 
-def test_make_town_batch_with_scenarios_matches_jax_bit_for_bit(built):
+def test_make_town_batch_with_scenarios_matches_jax_bit_for_bit(built,
+                                                               tmp_path,
+                                                               monkeypatch):
   j, t = built
   _compare_batches(j[1:], t[1:], expect_scenarios=True)
   kinds = set(t[3].scenarios.kind[t[3].scenarios.valid].tolist())
   assert {ST.FOLLOW_LEADING, ST.OTHER_LEADING,
           ST.JUNCTION_CROSSING} <= kinds, kinds
-  with pytest.raises(NotImplementedError, match="importer"):
-    scene_builder.make_town_batch(CFG, "Town01", device="cpu")
+  # an imported town name: built from an asset root, refused from none
+  from test_torch_port_importer import write_asset_root
+  monkeypatch.setenv("CGT_TOWN_CACHE", str(tmp_path / "cache"))
+  root = str(tmp_path / "reference")
+  write_asset_root(root)
+  town, *_, scene, _ = scene_builder.make_town_batch(
+      CFG, "Town02", batch=2, min_route_m=90.0, max_route_m=200.0,
+      assets_root=root, use_scenarios=True, device="cpu")
+  assert town.raster.shape == (9, 600, 360)
+  assert scene.scenarios.valid.any()
+  with pytest.raises(OSError):
+    scene_builder.make_town_batch(CFG, "Town01", device="cpu",
+                                  assets_root=str(tmp_path / "absent"))
 
 
 @pytest.mark.parametrize("kw", [

@@ -3,70 +3,43 @@
 The repository's ``native/librouter.so`` is loaded as it is. Only when
 that file is absent is ``native/router.cpp`` compiled with ``g++``, into
 ``build/native/`` at the repository root (git-ignored), never into
-``native/``. ``maps/routing.RoadRouter`` takes this A* when it loads and
-scipy's Dijkstra otherwise: the same choice as the JAX package's binding
-of the same library.
+``native/`` (``utils/host_build.py``). ``maps/routing.RoadRouter`` takes
+this A* when it loads and scipy's Dijkstra otherwise: the same choice as
+the JAX package's binding of the same library.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-from pathlib import Path
 
 import numpy as np
+
+from carla_garage_tpu_torch.utils import host_build
 
 _LIB = None
 _TRIED = False
 
-_ROOT = Path(__file__).resolve().parents[2]
-NATIVE_DIR = _ROOT / "native"
-BUILD_DIR = _ROOT / "build" / "native"
-
-
-def _library() -> Path | None:
-  """The shared library to load: native/librouter.so, or a g++ build of
-  native/router.cpp when that is absent; None when neither exists."""
-  so = NATIVE_DIR / "librouter.so"
-  if so.exists():
-    return so
-  out = BUILD_DIR / "librouter.so"
-  if out.exists():
-    return out
-  src = NATIVE_DIR / "router.cpp"
-  if not src.exists():
-    return None
-  BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  tmp = out.with_suffix(f".{os.getpid()}.tmp")
-  try:
-    subprocess.run(["g++", "-O3", "-fPIC", "-std=c++17", "-shared", "-o",
-                    str(tmp), str(src)], check=True, capture_output=True)
-  except (OSError, subprocess.CalledProcessError):
-    return None
-  os.replace(tmp, out)
-  return out
+NATIVE_DIR = host_build.ROOT / "native"
 
 
 def _load():
+  """The library: native/librouter.so, or a g++ build of native/router.cpp
+  when that is absent; None when neither loads."""
   global _LIB, _TRIED
   if _LIB is not None or _TRIED:
     return _LIB
   _TRIED = True
-  so = _library()
-  if so is None:
-    return None
+  so = NATIVE_DIR / "librouter.so"
   try:
-    lib = ctypes.CDLL(str(so))
-  except OSError:
+    if not so.exists():
+      so = host_build.build(NATIVE_DIR / "router.cpp", "router")
+    p, i32 = ctypes.POINTER, ctypes.c_int32
+    _LIB = host_build.load(so, {"route_grid": (i32, [
+        p(ctypes.c_uint8), p(ctypes.c_float), i32, i32, i32, i32,
+        ctypes.c_float, p(i32), i32])})
+  except (OSError, RuntimeError):         # no g++, a failed build, no .so
     return None
-  lib.route_grid.restype = ctypes.c_int32
-  lib.route_grid.argtypes = [
-      ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_float),
-      ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-      ctypes.c_float, ctypes.POINTER(ctypes.c_int32), ctypes.c_int32]
-  _LIB = lib
-  return lib
+  return _LIB
 
 
 def available() -> bool:

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import weakref
 
 import numpy as np
 import torch
@@ -68,11 +69,20 @@ def curvature_junction_flags(dense: np.ndarray, window_m: float = 8.0,
   return dyaw > thresh_deg
 
 
-# host caches keyed by id(town.raster), as the JAX package keys them
+# host caches keyed by id(town.raster), as the JAX package keys them. An
+# id is unique only while its object lives: the entries of the first three
+# are dropped when their raster is freed (``_drop_with``), and those of
+# _PAD_CACHE keep their raster alive. (JAX's first three do neither, so a
+# new town can be served a freed town's entry there.)
 _SNAP_CACHE: dict = {}
 _LANE_SNAP_CACHE: dict = {}
 _ROUTER_CACHE: dict = {}
 _PAD_CACHE: dict = {}
+
+
+def _drop_with(raster: np.ndarray, cache: dict, key):
+  """Remove cache[key] when `raster` is freed."""
+  weakref.finalize(raster, cache.pop, key, None)
 
 
 def snap_to_road(dense: np.ndarray, town: SyntheticTown) -> np.ndarray:
@@ -89,6 +99,7 @@ def snap_to_road(dense: np.ndarray, town: SyntheticTown) -> np.ndarray:
     _, (iy, ix) = ndimage.distance_transform_edt(~deep,
                                                  return_indices=True)
     _SNAP_CACHE[key] = (inside, ix, iy)
+    _drop_with(town.raster, _SNAP_CACHE, key)
   inside, ix, iy = _SNAP_CACHE[key]
   p = ((dense - town.world_offset) * town.ppm)
   px = np.clip(np.round(p[:, 0]).astype(int), 0, inside.shape[1] - 1)
@@ -135,6 +146,7 @@ def _lane_snap_index(town: SyntheticTown):
       _LANE_SNAP_CACHE[key] = (cKDTree(P), P, Y)
     else:
       _LANE_SNAP_CACHE[key] = None
+    _drop_with(town.raster, _LANE_SNAP_CACHE, key)
   return _LANE_SNAP_CACHE[key]
 
 
@@ -181,6 +193,7 @@ def _road_router(town: SyntheticTown):
   if key not in _ROUTER_CACHE:
     _ROUTER_CACHE[key] = routing.RoadRouter(
         town.raster[Layer.ROAD] > 0, town.ppm, town.world_offset)
+    _drop_with(town.raster, _ROUTER_CACHE, key)
   return _ROUTER_CACHE[key]
 
 

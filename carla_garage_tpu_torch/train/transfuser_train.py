@@ -57,14 +57,11 @@ LOSS_WEIGHTS = dict(wp=1.0, checkpoint=1.0, target_speed=1.0, semantic=1.0,
                     velocity=1.0, brake=1.0)
 
 
-def render_frame_batch(cfg: GlobalConfig, maps, scene: Scene,
-                       frames: Frames, f_idx: int, camera_grid, lidar_grid,
-                       uniform: torch.Tensor | None = None,
-                       generator: torch.Generator | None = None):
-  """Render model inputs and labels for frame f_idx (a host int) across
-  the batch. Rebuilds a SimState from the recorded frame and runs the
-  live sensor renderers on it. uniform [B,N]: the LiDAR dropoff draws, or
-  None to draw them from `generator`."""
+def frame_state(frames: Frames, f_idx: int) -> SimState:
+  """The world of recorded frame f_idx (a host int) as a SimState the
+  sensor renderers take: ego, vehicles (their brake as the control's third
+  entry) and walkers, and the tick of the frame's clock, at which the
+  lights render in their state."""
   take = lambda x: x[f_idx]
   B, V = frames.veh_yaw.shape[1:3]
   W = frames.wlk_yaw.shape[2]
@@ -91,9 +88,27 @@ def render_frame_batch(cfg: GlobalConfig, maps, scene: Scene,
   # the tick from the recorded time: lights render in their state at the
   # frame's clock
   t_s = take(frames.time_s)
-  snap = SimState(tick=to_int32(torch.round(t_s * 20.0)),
+  return SimState(tick=to_int32(torch.round(t_s * 20.0)),
                   done=zeros(B, dtype=torch.bool), ego=ego, vehicles=veh,
                   walkers=wlk, expert=None, criteria=None)
+
+
+def render_frame_batch(cfg: GlobalConfig, maps, scene: Scene,
+                       frames: Frames, f_idx: int, camera_grid, lidar_grid,
+                       uniform: torch.Tensor | None = None,
+                       generator: torch.Generator | None = None):
+  """Render model inputs and labels for frame f_idx (a host int) across
+  the batch: the live sensor renderers run on ``frame_state``. uniform
+  [B,N]: the LiDAR dropoff draws, or None to draw them from
+  `generator`."""
+  snap = frame_state(frames, f_idx)
+  ego, veh, wlk = snap.ego, snap.vehicles, snap.walkers
+  B, V = veh.yaw.shape
+  dev = ego.pos.device
+  t_s = frames.time_s[f_idx]
+  brake = frames.veh_brake[f_idx]
+  zeros = lambda *s, dtype=torch.float32: torch.zeros(s, dtype=dtype,
+                                                      device=dev)
 
   cam = render_camera(cfg, maps, scene, snap, camera_grid)
   pts, valid = render_lidar(cfg, maps, scene, snap, lidar_grid,
@@ -149,8 +164,8 @@ def render_frame_batch(cfg: GlobalConfig, maps, scene: Scene,
               obj_valid=obj_valid, obj_speed=obj_speed,
               obj_brake=obj_brake, obj_cls=obj_cls,
               ego_pos=ego.pos, ego_yaw=ego.yaw, speed=ego.speed,
-              target_point=take(frames.target_point),
-              command=take(frames.command))
+              target_point=frames.target_point[f_idx],
+              command=frames.command[f_idx])
 
 
 def centernet_targets(cfg: GlobalConfig, tcfg: TransfuserConfig, batch,

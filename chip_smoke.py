@@ -146,7 +146,29 @@ Phases, each of which fails the run if it fails:
      shard from the cache, resume the train state after the last
      BC step and run no BC step before its DAgger round, where it is
      stopped (phase 20 before the imported towns came);
-  25. the output: every tick-state leaf finite, ticks advanced.
+  25. the disk path's codecs on the card's machine: whether PIL imports
+     there (information only; the port never imports it) and which .lzc
+     library loaded; the JPEG codec built from its source, then one
+     episode's full-width rendered camera frame through JPEG at quality
+     90 (PSNR at least 35 dB), its semantic PNG and its 24-bit depth PNG
+     (both exact), with host encode and decode times;
+  26. ``export_reference_layout`` at full width: phase 5's first 16 frames
+     of the 16 episodes (1024x256 camera, 59,904-ray sweep) written in the
+     reference's layout, every raycast and box-fill launch held to its
+     plain version (3 and 1 a frame), files, bytes and the host seconds
+     split into render and encode + write; each kernel timed against its
+     plain version at the export's shapes; the frames through
+     ``save_frames`` / ``load_frames``, bit-equal; then the export at B=2
+     on a small grid on the card and on the CPU from the same draws: the
+     same files, JSON within 1e-5, semantic and BEV PNGs equal, depths
+     within 1e-4, .lzc points within 1e-5 m plus a 2 mm quantum, JPEGs
+     within the CPU test's bound;
+  27. ``train_transfuser_from_disk`` at full width on phase 26's
+     directory: ``load_disk_samples`` (host seconds, samples a second),
+     then TransfuserConfig() in bf16 at batch 8, a warm-up step and 4
+     timed ones, ms/step split into the host batch build and the device
+     step, samples/s, peak memory, no kernel launch, finite losses;
+  28. the output: every tick-state leaf finite, ticks advanced.
 
 Every phase prints its wall time. The last two lines of standard output
 are the ``kernels`` JSON and ``{"ok": true, "device": ...}``. A kernel's
@@ -227,6 +249,16 @@ IMPORTED_ROUTES = {"Town01": 8, "Town02": 4}
 CARLA_TICKS = 1024                # run_benchmarks --max-ticks: one chunk
 UNCHECKED_TICKS = 128             # the sensor benchmark's window timed
                                   # without the launch check
+EXPORT_FRAMES = 16                # phase 5's frames written to disk: the
+                                  # first PRED_LEN + 8 of its 24
+EXPORT_REF_FRAMES = 3             # the export's card-vs-CPU reference
+DISK_BATCH = 8                    # train_transfuser_from_disk's default
+DISK_STEPS = 4                    # timed disk steps after a warm-up step
+CODEC_REPS = 5                    # host timings: the median of 5
+JPEG_PSNR_MIN = 35.0              # dB at quality 90 on a rendered frame
+# the port's JPEG decode of one rendered frame on two devices' renders:
+# the CPU test's bound (tests/test_torch_port_legacy_train.py)
+JPEG_MAX, JPEG_MEAN = 3, 0.5
 
 
 def log(*a):
@@ -2305,6 +2337,284 @@ def carla_benchmark(path, argv, n_episodes, b1, root, kernels, card):
   return n, run["ticks"], rc_err
 
 
+def host_ms(fn):
+  """Host milliseconds of fn: the median of CODEC_REPS calls."""
+  times = []
+  for _ in range(CODEC_REPS):
+    t0 = time.perf_counter()
+    out = fn()
+    times.append(1e3 * (time.perf_counter() - t0))
+  return statistics.median(times), out
+
+
+def codecs(cfg, maps, scene, state):
+  """Phase 25: the disk path's host codecs on the card's machine. Reports
+  whether PIL imports there (information only: nothing uses it) and which
+  .lzc library loaded; builds the JPEG codec, then round-trips one
+  episode's full-width rendered camera frame (JPEG, quality 90), its
+  semantic PNG and its 24-bit depth PNG."""
+  import importlib.util
+
+  from carla_garage_tpu_torch.sensors.camera import (camera_ray_grid,
+                                                     render_camera)
+  from carla_garage_tpu_torch.train import legacy_train
+  from carla_garage_tpu_torch.utils import image_io, lidar_codec
+
+  pil = importlib.util.find_spec("PIL") is not None
+  t0 = time.perf_counter()
+  lib = image_io.library_path()
+  log(f"  PIL importable: {pil} (unused); .lzc codec "
+      f"{lidar_codec.library_path()}; image codec {lib.name} ready in "
+      f"{time.perf_counter() - t0:.1f} s")
+  cam = render_camera(cfg, maps, scene, state, camera_ray_grid(cfg))
+  rgb = (torch.clamp(cam["rgb"][0], 0, 1) * 255).to(torch.uint8).cpu().numpy()
+  sem = cam["semantic"][0].to(torch.uint8).cpu().numpy()
+  depth = legacy_train._encode_depth_24bit(cam["depth"][0].cpu().numpy() /
+                                           85.0)
+  for what, img, enc, dec in (
+      ("camera JPEG q90", rgb, lambda a: image_io.encode_jpeg(a, 90),
+       image_io.decode_jpeg),
+      ("semantic PNG", sem, image_io.encode_png, image_io.decode_png),
+      ("depth PNG", depth, image_io.encode_png, image_io.decode_png)):
+    enc_ms, data = host_ms(lambda: enc(img))
+    dec_ms, back = host_ms(lambda: dec(data))
+    assert back.shape == img.shape, (what, back.shape)
+    if what.startswith("camera"):
+      mse = float(np.mean((back.astype(np.float64) - img) ** 2))
+      psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+      quality = f"PSNR {psnr:.2f} dB"
+      assert psnr >= JPEG_PSNR_MIN, (what, psnr)
+    else:
+      assert np.array_equal(back, img), what
+      quality = "exact"
+    log(f"  {what} {img.shape}: {len(data)} bytes, {quality}; host encode "
+        f"{enc_ms:.2f} ms, decode {dec_ms:.2f} ms")
+
+
+def json_close(got, want, where):
+  if isinstance(want, dict):
+    assert set(got) == set(want), where
+    for k in want:
+      json_close(got[k], want[k], f"{where}/{k}")
+  elif isinstance(want, list):
+    assert len(got) == len(want), where
+    for i, (g, w) in enumerate(zip(got, want)):
+      json_close(g, w, f"{where}[{i}]")
+  elif isinstance(want, float):
+    assert abs(got - want) <= 1e-5 + 1e-5 * abs(want), (where, got, want)
+  else:
+    assert got == want, (where, got, want)
+
+
+def same_dataset(card_root, cpu_root):
+  """Phase 26's card-vs-CPU comparison of two exported directories: the
+  same files; JSON floats within 1e-5; semantic and BEV PNGs equal; depth
+  PNGs as depths within the tick reference's 1e-4; .lzc points within
+  1e-5 m plus one quantum; JPEGs within the CPU test's bound. Returns
+  {kind: worst difference}."""
+  import gzip
+
+  from carla_garage_tpu_torch.utils import image_io, lidar_codec
+
+  def files(d):
+    return sorted(os.path.relpath(os.path.join(a, f), d)
+                  for a, _, fs in os.walk(d) for f in fs)
+
+  names = files(card_root)
+  assert names == files(cpu_root), "card and CPU wrote different files"
+  worst = {"json": 0, "png_exact": 0, "depth_m": 0.0, "lidar_m": 0.0,
+           "jpeg_levels": 0}
+  for name in names:
+    a, b = os.path.join(card_root, name), os.path.join(cpu_root, name)
+    kind = name.split(os.sep)[1]
+    if name.endswith(".json.gz"):
+      with gzip.open(a, "rt") as fa, gzip.open(b, "rt") as fb:
+        json_close(json.load(fa), json.load(fb), name)
+      worst["json"] += 1
+    elif kind == "rgb":
+      d = np.abs(image_io.read_jpeg(a).astype(np.int16) -
+                 image_io.read_jpeg(b).astype(np.int16))
+      assert d.max() <= JPEG_MAX and d.mean() <= JPEG_MEAN, (name, d.max())
+      worst["jpeg_levels"] = max(worst["jpeg_levels"], int(d.max()))
+    elif kind == "depth":
+      code = lambda p: image_io.read_png(p).astype(np.int64) @ np.array(
+          [1, 256, 65536])
+      da, db = (code(p) * (85.0 / (256 ** 3 - 1)) for p in (a, b))
+      np.testing.assert_allclose(da, db, rtol=1e-4, atol=1e-4, err_msg=name)
+      worst["depth_m"] = max(worst["depth_m"], float(np.abs(da - db).max()))
+    elif name.endswith(".png"):
+      assert np.array_equal(image_io.read_png(a), image_io.read_png(b)), name
+      worst["png_exact"] += 1
+    else:
+      pa, pb = (lidar_codec.decompress(pathlib.Path(p).read_bytes())
+                for p in (a, b))
+      assert pa.shape == pb.shape, (name, pa.shape, pb.shape)
+      err = float(np.abs(pa - pb).max()) if len(pa) else 0.0
+      assert err <= 1e-5 + lidar_codec.DEFAULT_SCALE, (name, err)
+      worst["lidar_m"] = max(worst["lidar_m"], err)
+  return len(names), worst
+
+
+def disk_export(cfg, maps, scene, frames, kernels, card, root):
+  """Phase 26: export_reference_layout of phase 5's first EXPORT_FRAMES
+  frames at full width (B=16, 1024x256 camera, 59,904-ray sweep) into
+  `root`, with every kernel launch held to its plain version; each
+  kernel timed against its plain version at the export's shapes; the
+  frames through save_frames / load_frames; then a card-vs-CPU reference
+  of the written files at B=2 on a small grid. Returns (launches, the
+  kernel times at the export's shapes)."""
+  from carla_garage_tpu_torch.ops import bev_fill as ops_bev_fill
+  from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
+  from carla_garage_tpu_torch.sensors.lidar import full_lidar_grid
+  from carla_garage_tpu_torch.structs import tree_items, tree_map
+  from carla_garage_tpu_torch.train import dataset_io, legacy_train
+
+  F = EXPORT_FRAMES
+  B = frames.ego_yaw.shape[1]
+  sub = tree_map(lambda x: x[:F].contiguous(), frames)
+  render_s = []
+  real_render = legacy_train._frame_on_host
+
+  def timed_render(*a, **kw):
+    t0 = time.perf_counter()
+    out = real_render(*a, **kw)               # ends in copies to the host
+    render_s.append(time.perf_counter() - t0)
+    return out
+
+  gen = torch.Generator(device="cuda").manual_seed(3)
+  legacy_train._frame_on_host = timed_render
+  try:
+    with every_launch_checked() as checked, \
+        first_inputs_by_shape() as recorded:
+      t0 = time.perf_counter()
+      routes, n = launches_during(kernels, lambda: legacy_train.
+                                  export_reference_layout(
+                                      root, cfg, maps, scene, sub,
+                                      camera_ray_grid(cfg),
+                                      full_lidar_grid(cfg), generator=gen))
+      dt = time.perf_counter() - t0
+  finally:
+    legacy_train._frame_on_host = real_render
+  n_files = sum(len(fs) for _, _, fs in os.walk(root))
+  n_bytes = sum(os.path.getsize(os.path.join(a, f))
+                for a, _, fs in os.walk(root) for f in fs)
+  by_kind = {}
+  for a, _, fs in os.walk(root):
+    for f in fs:
+      k = os.path.basename(a) if f[0].isdigit() else "results"
+      by_kind[k] = by_kind.get(k, 0) + os.path.getsize(os.path.join(a, f))
+  log(f"  {F} frames x {B} episodes: {n_files} files, {n_bytes / 1e6:.1f} "
+      f"MB ({', '.join(f'{k} {v / 1e6:.1f}' for k, v in by_kind.items())} "
+      f"MB); host {dt:.2f} s = render {sum(render_s):.2f} s + encode and "
+      f"write {dt - sum(render_s):.2f} s ({card}); launches {n}")
+  log(f"  launches checked against the plain versions: {checked}")
+  assert len(routes) == B and n_files == B * (7 * F + 1), (routes, n_files)
+  assert n == {"raycast_boxes": 3 * F, "fill_boxes_bev": F}, n
+  assert checked["raycast"] == 3 * F and checked["fill"] == F, checked
+  times = {}
+  for inputs in recorded["raycast"]:
+    label = "camera" if inputs[1].shape[1] == 256 * 1024 else "sweep"
+    _, ms, plain_ms = check_raycast(f"raycast_boxes[disk_export {label}]",
+                                    inputs)
+    times[label] = (ms, plain_ms, raycast_pairs(f"disk_export {label}",
+                                                inputs))
+  (boxes, h, w), = recorded["fill"]
+  _, ms, plain_ms = check_fill("fill_boxes_bev[disk_export]", boxes, h, w)
+  times["fill"] = (ms, plain_ms,
+                   ops_bev_fill.fill_boxes_bev_cost(boxes, h, w)[:2])
+  assert set(times) == {"camera", "sweep", "fill"}, sorted(times)
+
+  with tempfile.TemporaryDirectory() as tmp:
+    path = f"{tmp}/frames.npz"
+    t0 = time.perf_counter()
+    dataset_io.save_frames(frames, path)
+    back = dataset_io.load_frames(path)
+    for (p, x), (_, y) in zip(tree_items(frames), tree_items(back)):
+      assert x.dtype == y.dtype and torch.equal(x, y), p
+    log(f"  save_frames / load_frames of the {frames.ego_yaw.shape[0]} "
+        f"frames: bit-equal on the card, {os.path.getsize(path) / 1e6:.2f} "
+        f"MB, {time.perf_counter() - t0:.2f} s")
+
+    small_cam, small_lid = camera_ray_grid(cfg, scale=8), \
+        full_lidar_grid(cfg, decimate=16)
+    n_rays = small_lid.shape[0] * small_lid.shape[1]
+    g = torch.Generator().manual_seed(4)
+    draws = [torch.rand((2, n_rays), generator=g) for _ in range(2)]
+    fr2 = tree_map(lambda x: x[:EXPORT_REF_FRAMES, :2].contiguous(), frames)
+    sc2 = slice_batch(scene, 2)
+    for dev in ("cuda", "cpu"):
+      legacy_train.export_reference_layout(
+          f"{tmp}/{dev}", cfg, maps.to(dev), sc2.to(dev), fr2.to(dev),
+          small_cam, small_lid, uniform_render=draws[0].to(dev),
+          uniform_points=draws[1].to(dev))
+    n_ref, worst = same_dataset(f"{tmp}/cuda", f"{tmp}/cpu")
+    log(f"  card vs CPU export at B=2, {EXPORT_REF_FRAMES} frames, "
+        f"{small_cam.shape[0]}x{small_cam.shape[1]} camera, {n_rays} rays: "
+        f"{n_ref} files agree; worst {worst}")
+  return n, times
+
+
+def disk_train(cfg, root, kernels, card):
+  """Phase 27: load_disk_samples on phase 26's directory, then
+  train_transfuser_from_disk at TransfuserConfig() in bf16, batch
+  DISK_BATCH, a warm-up step and DISK_STEPS timed ones, each split into
+  the host batch build (stacking and the copy to the card) and the rest
+  of the step (forward, backward, clip, AdamW; each step ends in a host
+  sync reading its loss). Returns the launches."""
+  from carla_garage_tpu_torch.models.transfuser import TransfuserConfig
+  from carla_garage_tpu_torch.train import legacy_train
+
+  tcfg = TransfuserConfig()
+  t0 = time.perf_counter()
+  samples = legacy_train.load_disk_samples(root, cfg, tcfg)
+  dt = time.perf_counter() - t0
+  assert len(samples) >= DISK_BATCH, len(samples)
+  log(f"  load_disk_samples: {len(samples)} samples in {dt:.2f} s of host "
+      f"time, {len(samples) / dt:.1f} samples/s decoded")
+  marks = []
+  real_batch, real_load = (legacy_train.make_disk_batch,
+                           legacy_train.load_disk_samples)
+
+  def timed_batch(*a, **kw):
+    t = time.perf_counter()
+    out = real_batch(*a, **kw)
+    marks.append((t, time.perf_counter()))
+    return out
+
+  legacy_train.make_disk_batch = timed_batch
+  legacy_train.load_disk_samples = lambda *a, **kw: samples
+  torch.cuda.reset_peak_memory_stats()
+  try:
+    (model, hist), n = launches_during(kernels, lambda: legacy_train.
+                                       train_transfuser_from_disk(
+                                           root, cfg, tcfg,
+                                           steps=1 + DISK_STEPS,
+                                           batch_size=DISK_BATCH,
+                                           log_every=1, bf16=True))
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+  finally:
+    legacy_train.make_disk_batch = real_batch
+    legacy_train.load_disk_samples = real_load
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  starts = [a for a, _ in marks] + [t_end]
+  step_ms = [1e3 * (b - a) for a, b in zip(starts[1:], starts[2:])]
+  batch_ms = [1e3 * (b - a) for a, b in marks[1:]]
+  ms = statistics.mean(step_ms)
+  host = statistics.mean(batch_ms)
+  losses = [h["loss"] for h in hist]
+  log(f"  {DISK_STEPS} steps of batch {DISK_BATCH} (after a warm-up step): "
+      f"{ms:.1f} ms/step = host batch build {host:.1f} ms + device step "
+      f"{ms - host:.1f} ms; {DISK_BATCH * 1e3 / ms:.1f} samples/s; peak "
+      f"memory {peak_gb:.2f} GB ({card})")
+  log(f"  losses {[round(v, 4) for v in losses]}; launches {n}")
+  assert len(marks) == 1 + DISK_STEPS and len(hist) == 1 + DISK_STEPS
+  assert all(np.isfinite(losses)), losses
+  assert n == {"raycast_boxes": 0, "fill_boxes_bev": 0}, n
+  assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
+  return n
+
+
 def main():
   ap = argparse.ArgumentParser()
   ap.add_argument("--profile", metavar="PATH",
@@ -2515,6 +2825,18 @@ def main():
   rc_err, fill_err = max(rc_err, err), max(fill_err, f_err)
   assets.cleanup()
 
+  clock.start("the disk path's codecs on the card's machine")
+  codecs(cfg, maps, scene, state0)
+
+  disk = tempfile.TemporaryDirectory()
+  clock.start("export to the reference layout at full width")
+  export_launches, export_times = disk_export(cfg, maps, scene, frames,
+                                              kernels, card, disk.name)
+
+  clock.start("train_transfuser_from_disk at full width")
+  disk_train_launches = disk_train(cfg, disk.name, kernels, card)
+  disk.cleanup()
+
   clock.start("output")
   n_leaves = 0
   for path, x in tree_items(state):
@@ -2546,7 +2868,9 @@ def main():
                     "bench_carla_expert":
                         carla_launches["bench_carla_expert"][name],
                     "bench_carla_sensor":
-                        carla_launches["bench_carla_sensor"][name]}
+                        carla_launches["bench_carla_sensor"][name],
+                    "disk_export": export_launches[name],
+                    "disk_train": disk_train_launches[name]}
              for name in kernels}
   log(f"  launches: {by_path} (tick: {TICKS} ticks, train_step: "
       f"{TRAIN_STEPS} steps, eval: {eval_ticks} ticks, dagger: "
@@ -2557,7 +2881,18 @@ def main():
       f"bench_sensor_reduced: {bench_ticks['bench_sensor_reduced']} ticks, "
       f"bench_carla_expert: {carla_ticks['bench_carla_expert']} ticks, "
       f"bench_carla_sensor: {carla_ticks['bench_carla_sensor']} ticks, "
-      f"entry_*: whole runs)")
+      f"disk_export: {EXPORT_FRAMES} frames, disk_train: {1 + DISK_STEPS} "
+      f"steps, entry_*: whole runs)")
+  (c_ms, c_plain, c_cost), (s_ms, s_plain, s_cost), (f_ms, f_plain,
+                                                     f_cost) = (
+      export_times[k] for k in ("camera", "sweep", "fill"))
+  frame_bound = bound(c_cost[0] + 2 * s_cost[0], c_cost[1] + 2 * s_cost[1])
+  log(f"  disk_export, a frame's kernels at its shapes: raycast_boxes "
+      f"camera + 2 sweeps {c_ms + 2 * s_ms:.4f} ms (bound "
+      f"{frame_bound[0]:.4f} ms by {frame_bound[1]}; plain "
+      f"{c_plain + 2 * s_plain:.3f} ms), fill_boxes_bev {f_ms:.4f} ms "
+      f"(bound {bound(*f_cost)[0]:.6f} ms by {bound(*f_cost)[1]}; plain "
+      f"{f_plain:.3f} ms)")
   clock.stop()
 
   log(card)

@@ -61,6 +61,7 @@ from carla_garage_tpu_torch.utils.checkpoint import save_checkpoint
 from test_torch_port_eval import _random_params
 from test_torch_port_importer import write_asset_root
 from test_torch_port_scenarios import _compare_batches
+from test_torch_port_scene import clear_jax_town_caches
 from test_torch_port_tick import _tick_config
 
 V, TICKS = 16, 24
@@ -73,6 +74,11 @@ RUN = dict(benchmark="longest6", n_vehicles=6, n_walkers=2,
 JAX_META_KEYS = {"benchmark", "reps", "n_vehicles", "n_walkers", "capacity",
                  "seed", "scenarios", "single_batch", "towns", "wall_s",
                  "cmdline"}
+
+
+@pytest.fixture(autouse=True)
+def _fresh_jax_town_caches():
+  clear_jax_town_caches()
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -22,6 +22,7 @@ train_plant.py and dagger_ab.py) against the JAX scripts' own functions
 
 import argparse
 import dataclasses
+import gc
 import json
 import pathlib
 import sys
@@ -55,7 +56,7 @@ from carla_garage_tpu_torch.utils.checkpoint import load_checkpoint
 from test_torch_port_eval import _random_params
 from test_torch_port_plant_train import _random_ds, close
 from test_torch_port_scenarios import _compare_batches
-from test_torch_port_scene import jax_leaves, to_port
+from test_torch_port_scene import clear_jax_town_caches, jax_leaves, to_port
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent /
                        "scripts"))
@@ -76,6 +77,11 @@ def _one_torch_thread():
   torch.set_num_threads(1)
   yield
   torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_jax_town_caches():
+  clear_jax_town_caches()
 
 
 def replayed_draws(j_state, K, n, expert=True):
@@ -405,6 +411,22 @@ def test_make_town_batch_synth_n_matches_jax():
                                     **kw)
   np.testing.assert_array_equal(t[0].raster, j[0].raster)
   _compare_batches(j[1:], t[1:], expect_scenarios=True)
+
+
+def test_town_caches_forget_freed_rasters():
+  """The route compiler's per-town caches are keyed by id(town.raster), as
+  JAX's are; an id is reused once its array is freed, so the port drops a
+  town's entries with its raster."""
+  town = synthetic.make_town(n_x=3, n_y=3, block=100.0, seed=4)
+  xy, yaw = synthetic.sample_route_keypoints(town, np.random.default_rng(0),
+                                             min_len_m=200.0)
+  scene_builder.compile_route(town, xy, yaw)
+  key = id(town.raster)
+  caches = (scene_builder._SNAP_CACHE, scene_builder._ROUTER_CACHE)
+  assert all(key in c for c in caches)
+  del town
+  gc.collect()
+  assert not any(key in c for c in caches)
 
 
 def test_two_town_batch_matches_jax():

@@ -54,7 +54,7 @@ from carla_garage_tpu_torch.structs import tree_items
 from carla_garage_tpu_torch.train import transfuser_train as tt
 from carla_garage_tpu_torch.utils.checkpoint import load_checkpoint
 from test_torch_port_eval import _random_params
-from test_torch_port_scene import jax_leaves, to_port
+from test_torch_port_scene import clear_jax_town_caches, jax_leaves, to_port
 from test_torch_port_tick import _tick_config
 from test_torch_port_train import (CFG, JCFG, TCFG, assert_grads_close,
                                    batch_draws, close, setup)  # noqa: F401
@@ -76,6 +76,11 @@ def _one_torch_thread():
   torch.set_num_threads(1)
   yield
   torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_jax_town_caches():
+  clear_jax_town_caches()
 
 
 @pytest.fixture(scope="module")

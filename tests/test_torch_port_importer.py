@@ -48,6 +48,7 @@ from carla_garage_tpu_torch.maps.town_map import LaneGraph
 from carla_garage_tpu_torch.sim import scene_builder
 from carla_garage_tpu_torch.sim.scenarios import ScenarioType as ST
 from test_torch_port_scenarios import _compare_batches
+from test_torch_port_scene import clear_jax_town_caches
 
 V = 16
 JC = JCFG.replace(sim=dataclasses.replace(JCFG.sim, max_vehicles=V))
@@ -55,6 +56,11 @@ CFG = DEFAULT_CONFIG.replace(sim=dataclasses.replace(DEFAULT_CONFIG.sim,
                                                      max_vehicles=V))
 TOWNS = {"Town01": dict(n_x=3, n_y=3, yellow=True, offset=(0.0, 0.0)),
          "Town02": dict(n_x=2, n_y=3, yellow=False, offset=(-50.0, -20.0))}
+
+
+@pytest.fixture(autouse=True)
+def _fresh_jax_town_caches():
+  clear_jax_town_caches()
 
 
 def grid_town_arrays(n_x, n_y, yellow, offset, block=60.0, margin=15.0):

@@ -34,7 +34,8 @@ from carla_garage_tpu_torch.sim import scenarios, scene_builder, triggers
 from carla_garage_tpu_torch.sim.episode import sim_step
 from carla_garage_tpu_torch.structs import (ScenarioSpecs, ScenarioState,
                                             Scene, SimState, tree_items)
-from test_torch_port_scene import jax_batch_to_port, jax_leaves, to_port
+from test_torch_port_scene import (clear_jax_town_caches, jax_batch_to_port,
+                                   jax_leaves, to_port)
 
 B, K, V = 2, 8, 16
 T = lambda a: torch.from_numpy(np.array(a))
@@ -42,6 +43,11 @@ JC = JCFG.replace(sim=dataclasses.replace(JCFG.sim, max_vehicles=V))
 CFG = DEFAULT_CONFIG.replace(sim=dataclasses.replace(DEFAULT_CONFIG.sim,
                                                      max_vehicles=V))
 ST = j_scn.ScenarioType
+
+
+@pytest.fixture(autouse=True)
+def _fresh_jax_town_caches():
+  clear_jax_town_caches()
 
 
 def assert_leaves(want: dict, got: dict, rtol, atol, what=""):
@@ -93,6 +99,7 @@ TOWN_ARGS = dict(batch=B, seed=1, n_vehicles=6, n_walkers=2,
 def built():
   """make_town_batch("synth", use_scenarios=True) of both packages:
   (town, maps, lanes, scene, state) each."""
+  clear_jax_town_caches()
   return (j_sb.make_town_batch(JC, "synth", **TOWN_ARGS),
           scene_builder.make_town_batch(CFG, "synth", device="cpu",
                                         **TOWN_ARGS))

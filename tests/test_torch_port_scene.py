@@ -66,6 +66,18 @@ def to_port(obj, cls, device="cpu"):
                          torch.device(device))
 
 
+def clear_jax_town_caches():
+  """Empty the JAX scene builder's per-town caches, before a JAX build
+  that a test holds against the port's. They are keyed by
+  id(town.raster) and keep the entries of freed rasters, which a new
+  raster at a reused address is then served: a town that an earlier test
+  in the process freed would lend its snap map or router to the new one
+  (the port drops an entry with its raster)."""
+  from carla_garage_tpu.sim import scene_builder as j_sb
+  for cache in (j_sb._SNAP_CACHE, j_sb._LANE_SNAP_CACHE, j_sb._ROUTER_CACHE):
+    cache.clear()
+
+
 def jax_batch_to_port(maps, lanes, scene, state, device="cpu"):
   return (to_port(maps, MapStack, device), to_port(lanes, LaneGraph, device),
           to_port(scene, Scene, device), to_port(state, SimState, device))
@@ -79,6 +91,7 @@ def write_synth_scene(path=scene_io.SYNTH_B16_V100):
 
 
 def test_committed_scene_matches_jax_builder():
+  clear_jax_town_caches()
   _, maps, lanes, scene, state = make_synthetic_batch(synth_config(),
                                                       **SYNTH_ARGS)
   loaded = scene_io.load_scene(device="cpu")

@@ -3,7 +3,8 @@
 ``load_flax_params(model, params)`` takes the tree as nested dicts of
 numpy arrays (``{"params": {...}}`` or the inner dict) and copies every
 leaf into the torch module of the same path. Layouts:
-  conv kernel HWIO -> OIHW (grouped convs too: I is in/groups on both);
+  conv kernel HWIO -> OIHW (grouped convs too: I is in/groups on both),
+  3-D conv kernel THWIO -> OITHW;
   Dense kernel (in, out) -> (out, in);
   attention query/key/value kernel (in, heads, head_dim) -> (heads*head_dim,
   in), bias (heads, head_dim) -> (heads*head_dim,); out kernel
@@ -12,6 +13,10 @@ leaf into the torch module of the same path. Layouts:
   the GRU cell's ``in`` -> ``in_``.
 Every flax leaf must land on a torch parameter of the same size and every
 torch parameter must be written, or it raises.
+
+A reference PyTorch checkpoint (the ``model_*.pth`` state dicts of a
+published ensemble) goes through ``convert.assemble`` instead, which renames
+its keys onto the port's modules (``convert.torch_import``).
 """
 
 from __future__ import annotations
@@ -27,7 +32,9 @@ def _convert(name: str, module: nn.Module, module_name: str,
              value: np.ndarray, target: torch.Tensor) -> torch.Tensor:
   v = torch.from_numpy(np.array(value, dtype=np.float32))
   if name == "kernel":
-    if v.ndim == 4:                               # conv HWIO -> OIHW
+    if v.ndim == 5:                               # conv THWIO -> OITHW
+      v = v.permute(4, 3, 0, 1, 2)
+    elif v.ndim == 4:                             # conv HWIO -> OIHW
       v = v.permute(3, 2, 0, 1)
     elif v.ndim == 3 and module_name == "out":    # (heads, hd, out)
       v = v.reshape(-1, v.shape[-1]).T

@@ -1,7 +1,7 @@
 """Prediction heads (port of carla_garage_tpu/models/heads.py): perspective
-decoder, CenterNet, the InterFuser-style GRU, sine position embedding and
-the post-LN transformer-decoder join. Feature maps NCHW inside; outputs
-are turned to NHWC by ``LidarCenterNet``."""
+decoder, CenterNet, the InterFuser- and TransFuser-style GRUs, sine
+position embedding and the post-LN transformer-decoder join. Feature maps
+NCHW inside; outputs are turned to NHWC by ``LidarCenterNet``."""
 
 from __future__ import annotations
 
@@ -119,6 +119,40 @@ class GRUWaypointsPredictorInterFuser(nn.Module):
       hs.append(h)
     deltas = self.decoder(torch.stack(hs, 1))
     return torch.cumsum(deltas, dim=1)
+
+
+class GRUWaypointsPredictorTransFuser(nn.Module):
+  """Autoregressive GRU waypoint decoder: each step feeds the current
+  waypoint (and the target point) and adds the decoded delta. With
+  learn_origin the context carries the waypoint origin in its two
+  features after the hidden state."""
+
+  def __init__(self, pred_len: int, hidden_size: int = 64,
+               target_point_size: int = 2, learn_origin: bool = False):
+    super().__init__()
+    self.pred_len = pred_len
+    self.hidden_size = hidden_size
+    self.target_point_size = target_point_size
+    self.learn_origin = learn_origin
+    self.gru = GRUCell(2 + target_point_size, hidden_size)
+    self.decoder = Linear(hidden_size, 2)
+
+  def forward(self, z, target_point):
+    """z [B,hidden(+2 with learn_origin)], target_point [B,2] ->
+    waypoints [B,pred_len,2]."""
+    H = self.hidden_size
+    if self.learn_origin:
+      x, h = z[:, H:H + 2], z[:, :H]
+    else:
+      x, h = z.new_zeros((z.shape[0], 2)), z
+    wps = []
+    for _ in range(self.pred_len):
+      inp = torch.cat([x, target_point], -1) if self.target_point_size > 0 \
+          else x
+      h = self.gru(h, inp)
+      x = x + self.decoder(h)
+      wps.append(x)
+    return torch.stack(wps, 1)
 
 
 def sine_position_embedding(h: int, w: int, channels: int,

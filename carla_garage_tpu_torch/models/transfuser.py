@@ -79,22 +79,23 @@ def micro_config() -> TransfuserConfig:
 class TransfuserBackbone(nn.Module):
   """Dual RegNetY branches with per-stage GPT fusion plus the top-down BEV
   path. Returns NCHW (image features at stride 32, BEV grid at lidar
-  res / 4, fused LiDAR features at stride 32)."""
+  res / 4, fused LiDAR features at stride 32). norm: the branches' norm
+  (``backbones.make_norm``)."""
 
-  def __init__(self, c: TransfuserConfig):
+  def __init__(self, c: TransfuserConfig, norm: str = "gn"):
     super().__init__()
     self.cfg = c
     ispec, lspec = arch_spec(c.image_arch), arch_spec(c.lidar_arch)
-    self.image_stem = RegNetYStem(3, ispec["stem_w"])
-    self.lidar_stem = RegNetYStem(c.lidar_channels, lspec["stem_w"])
+    self.image_stem = RegNetYStem(3, ispec["stem_w"], norm)
+    self.lidar_stem = RegNetYStem(c.lidar_channels, lspec["stem_w"], norm)
     wi, wl = ispec["stem_w"], lspec["stem_w"]
     for i in range(4):
       self.add_module(f"image_stage{i}", RegNetYStage(
           wi, ispec["depths"][i], ispec["widths"][i], ispec["group_w"],
-          ispec["se_ratio"]))
+          ispec["se_ratio"], norm))
       self.add_module(f"lidar_stage{i}", RegNetYStage(
           wl, lspec["depths"][i], lspec["widths"][i], lspec["group_w"],
-          lspec["se_ratio"]))
+          lspec["se_ratio"], norm))
       wi, wl = ispec["widths"][i], lspec["widths"][i]
       self.add_module(f"fusion{i}", FusionStage(
           wi, wl, c.img_anchors, c.lidar_anchors, c.n_head,
@@ -135,14 +136,16 @@ class LidarCenterNet(nn.Module):
   """Umbrella driving model: backbone + planning + auxiliary heads.
 
   forward(rgb [B,H,W,3], lidar_bev [B,H,W,C], target_point [B,2],
-  command_onehot [B,6], velocity [B]) -> dict of outputs, NHWC maps."""
+  command_onehot [B,6], velocity [B]) -> dict of outputs, NHWC maps.
+  norm="bn_affine" builds the backbone with folded BatchNorms, the layout
+  a converted reference checkpoint loads into (``convert.assemble``)."""
 
-  def __init__(self, c: TransfuserConfig):
+  def __init__(self, c: TransfuserConfig, norm: str = "gn"):
     super().__init__()
     self.cfg = c
     lspec = arch_spec(c.lidar_arch)
     ispec = arch_spec(c.image_arch)
-    self.backbone = TransfuserBackbone(c)
+    self.backbone = TransfuserBackbone(c, norm)
     self.change_channel = conv(lspec["widths"][-1], c.d_model, 1)
     self.velocity_norm = AffineNorm(1)
     self.extra_fc1 = Linear(7, 128)

@@ -168,7 +168,26 @@ Phases, each of which fails the run if it fails:
      then TransfuserConfig() in bf16 at batch 8, a warm-up step and 4
      timed ones, ms/step split into the host batch build and the device
      step, samples/s, peak memory, no kernel launch, finite losses;
-  28. the output: every tick-state leaf finite, ticks advanced.
+  28. the remaining models at full width with seeded weights:
+     ``AIMBackbone()`` (regnety_032), ``BevEncoder(projection=
+     make_projection_grid())`` (a 64x64x8 grid), ``VideoResNet()`` and
+     ``SwinTransformer3D()`` on a 4-frame 256x256 LiDAR sequence and
+     ``GRUWaypointsPredictorTransFuser(pred_len=8)``: each on the card
+     against the CPU at B=2 in float32 (every output within 1e-4 abs +
+     1e-4 rel), then a timed bf16 forward at B=16, finite, no
+     kernel launch;
+  29. a reference-layout TransFuser++ ensemble: ``config.pickle`` (a dict)
+     and ``model_0030.pth`` / ``model_0031.pth``, full-width regnety_032
+     state dicts in the timm / reference key layout drawn from a numpy
+     seed, BatchNorm statistics far from the identity; loaded by
+     ``load_ensemble_directory``, member 0 on the card against the CPU at
+     B=2 (float32), then the two members served in bf16 through
+     ``make_transfuser_policy`` on the committed scene for 32 ticks, with
+     2 raycast launches a tick, every one held to its plain version;
+  30. PlanT from a reference-layout ``PlanTConfig()`` state dict through
+     ``convert_plant``: card against CPU at B=2, then 8 PlanT ticks on the
+     committed scene, no kernel launch;
+  31. the output: every tick-state leaf finite, ticks advanced.
 
 Every phase prints its wall time. The last two lines of standard output
 are the ``kernels`` JSON and ``{"ok": true, "device": ...}``. A kernel's
@@ -256,6 +275,10 @@ DISK_BATCH = 8                    # train_transfuser_from_disk's default
 DISK_STEPS = 4                    # timed disk steps after a warm-up step
 CODEC_REPS = 5                    # host timings: the median of 5
 JPEG_PSNR_MIN = 35.0              # dB at quality 90 on a rendered frame
+MODELS_BATCH = 16                 # the remaining models' timed forward
+ENSEMBLE_MEMBERS = 2              # the converted ensemble: model_0030/31
+ENSEMBLE_TICKS = 32               # its served ticks, every launch checked
+PLANT_CONVERTED_TICKS = 8         # ticks of the converted PlanT
 # the port's JPEG decode of one rendered frame on two devices' renders:
 # the CPU test's bound (tests/test_torch_port_legacy_train.py)
 JPEG_MAX, JPEG_MEAN = 3, 0.5
@@ -2615,6 +2638,402 @@ def disk_train(cfg, root, kernels, card):
   return n
 
 
+# --- slice 9: the remaining models and the reference-checkpoint loader -------
+
+def remaining_models(kernels, card):
+  """Phase 28: each module of slice 9 at full width with seeded weights,
+  card against CPU at B=2 in float32, then the timed bf16 forward at
+  B=16. Returns the launches (none)."""
+  import copy
+  from carla_garage_tpu_torch.models.aim import AIMBackbone
+  from carla_garage_tpu_torch.models.bev_encoder import (BevEncoder,
+                                                         make_projection_grid)
+  from carla_garage_tpu_torch.models.heads import \
+      GRUWaypointsPredictorTransFuser
+  from carla_garage_tpu_torch.models.video_nets import (SwinTransformer3D,
+                                                        VideoResNet)
+
+  rng = np.random.default_rng(28)
+
+  def inputs(B):
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)
+    return {"rgb": f32(rng.uniform(0, 1, (B, 3, 256, 1024))),
+            "bev": f32(rng.integers(0, 6, (B, 2, 64, 64)) / 5.0),
+            "seq": f32(rng.integers(0, 6, (B, 2, 4, 256, 256)) / 5.0),
+            "z": f32(rng.normal(size=(B, 64))),
+            "tp": f32(rng.normal(0, 10, (B, 2)))}
+
+  cases = (("AIMBackbone()", AIMBackbone, ("rgb",)),
+           ("BevEncoder(projection=make_projection_grid())",
+            lambda: BevEncoder(projection=make_projection_grid()),
+            ("rgb", "bev")),
+           ("VideoResNet()", VideoResNet, ("seq",)),
+           ("SwinTransformer3D()", SwinTransformer3D, ("seq",)),
+           ("GRUWaypointsPredictorTransFuser(pred_len=8)",
+            lambda: GRUWaypointsPredictorTransFuser(8), ("z", "tp")))
+  small, big = inputs(2), inputs(MODELS_BATCH)
+  total = {n: 0 for n in kernels}
+  for seed, (name, make, keys) in enumerate(cases):
+    torch.manual_seed(seed)
+    m = make().eval()
+    n_par = sum(p.numel() for p in m.parameters())
+    t0 = time.perf_counter()
+    with torch.no_grad():
+      want = m(*(small[k] for k in keys))
+      m_g = copy.deepcopy(m).cuda()
+      got = m_g(*(small[k].cuda() for k in keys))
+    err = leaves_close(got, want, name)
+    ref_s = time.perf_counter() - t0
+    mb = copy.deepcopy(m_g).to(torch.bfloat16)
+    x = [big[k].cuda().to(torch.bfloat16) for k in keys]
+    with torch.no_grad():
+      _, launches = launches_during(kernels, lambda: mb(*x))
+      out = mb(*x)
+      ms = time_ms(lambda: mb(*x), reps=5, inner=2)
+    outs = out if isinstance(out, tuple) else (out,)
+    assert all(bool(torch.isfinite(o.float()).all()) for o in outs), name
+    assert not any(launches.values()), (name, launches)
+    for n in total:
+      total[n] += launches[n]
+    log(f"  {name}: {n_par / 1e6:.2f}M parameters; card vs CPU at B=2 "
+        f"float32 max |diff| {err:.3g} (bar 1e-4 abs + 1e-4 rel; "
+        f"{ref_s:.1f} s); bf16 forward at B={MODELS_BATCH} "
+        f"{[tuple(o.shape) for o in outs]} {ms:.3f} ms, finite ({card})")
+    del m, m_g, mb, x, out, outs
+  torch.cuda.empty_cache()
+  return total
+
+
+class RefDraw:
+  """A state dict in the reference's key layout, every value drawn from a
+  numpy seed: Linear and conv weights N(0, 1/fan_in), BatchNorm and
+  LayerNorm gains near 1, BatchNorm running means N(0, 0.2) and variances
+  U(0.5, 2) (so no fold is the identity), biases and embeddings small."""
+
+  def __init__(self, seed):
+    self.rng = np.random.default_rng(seed)
+    self.sd = {}
+
+  def put(self, key, shape, kind):
+    r = self.rng
+    if kind == "weight":
+      x = r.standard_normal(shape, np.float32) / np.float32(
+          np.sqrt(max(np.prod(shape[1:]), 1)))
+    elif kind == "gamma":
+      x = 1.0 + 0.1 * r.standard_normal(shape, np.float32)
+    elif kind == "mean":
+      x = 0.2 * r.standard_normal(shape, np.float32)
+    elif kind == "var":
+      x = r.uniform(0.5, 2.0, shape)
+    else:
+      x = 0.05 * r.standard_normal(shape, np.float32)
+    self.sd[key] = torch.from_numpy(np.asarray(x, np.float32))
+
+  def linear(self, p, out, inp, k=None):
+    self.put(f"{p}.weight", (out, inp) + ((k, k) if k else ()), "weight")
+    self.put(f"{p}.bias", (out,), "bias")
+
+  def layernorm(self, p, c):
+    self.put(f"{p}.weight", (c,), "gamma")
+    self.put(f"{p}.bias", (c,), "bias")
+
+  def batchnorm(self, p, c, affine=True):
+    if affine:
+      self.layernorm(p, c)
+    self.put(f"{p}.running_mean", (c,), "mean")
+    self.put(f"{p}.running_var", (c,), "var")
+    self.sd[f"{p}.num_batches_tracked"] = torch.tensor(1000)
+
+  def conv_bn(self, p, out, inp, k):
+    self.put(f"{p}.conv.weight", (out, inp, k, k), "weight")
+    self.batchnorm(f"{p}.bn", out)
+
+  def timm_regnet(self, p, in_chans, spec):
+    """timm's RegNetY keys: stem.conv/bn, s{i}.b{j}.conv1-3.{conv,bn},
+    se.fc1/fc2, downsample.{conv,bn}, 1-based."""
+    self.conv_bn(f"{p}.stem", spec["stem_w"], in_chans, 3)
+    cin = spec["stem_w"]
+    for si, (d, w) in enumerate(zip(spec["depths"], spec["widths"])):
+      for bi in range(d):
+        b = f"{p}.s{si + 1}.b{bi + 1}"
+        rd = max(int(cin * spec["se_ratio"]), 8)
+        self.conv_bn(f"{b}.conv1", w, cin, 1)
+        self.conv_bn(f"{b}.conv2", w, w // max(w // spec["group_w"], 1), 3)
+        self.linear(f"{b}.se.fc1", rd, w, 1)
+        self.linear(f"{b}.se.fc2", w, rd, 1)
+        self.conv_bn(f"{b}.conv3", w, w, 1)
+        if bi == 0:
+          self.conv_bn(f"{b}.downsample", w, cin, 1)
+        cin = w
+
+  def mha(self, p, d):
+    self.put(f"{p}.in_proj_weight", (3 * d, d), "weight")
+    self.put(f"{p}.in_proj_bias", (3 * d,), "bias")
+    self.linear(f"{p}.out_proj", d, d)
+
+  def gru(self, p, inp, hidden, suffix):
+    self.put(f"{p}.weight_ih{suffix}", (3 * hidden, inp), "weight")
+    self.put(f"{p}.weight_hh{suffix}", (3 * hidden, hidden), "weight")
+    self.put(f"{p}.bias_ih{suffix}", (3 * hidden,), "bias")
+    self.put(f"{p}.bias_hh{suffix}", (3 * hidden,), "bias")
+
+
+def reference_transfuser_sd(c, seed):
+  """A reference LidarCenterNet state dict (TransFuser++ with the
+  transformer-decoder join) for TransfuserConfig c, both branches timm
+  RegNetYs of c's arch."""
+  from carla_garage_tpu_torch.models.backbones import arch_spec
+  r = RefDraw(seed)
+  ispec, lspec = arch_spec(c.image_arch), arch_spec(c.lidar_arch)
+  r.timm_regnet("backbone.image_encoder", 3, ispec)
+  r.timm_regnet("backbone.lidar_encoder", c.lidar_channels, lspec)
+  n_tok = c.img_anchors[0] * c.img_anchors[1] + \
+      c.lidar_anchors[0] * c.lidar_anchors[1]
+  for i, (wi, wl) in enumerate(zip(ispec["widths"], lspec["widths"])):
+    g = f"backbone.transformers.{i}"
+    r.put(f"{g}.pos_emb", (1, n_tok, wi), "bias")
+    for j in range(c.n_fusion_layers):
+      b = f"{g}.blocks.{j}"
+      r.layernorm(f"{b}.ln1", wi)
+      r.layernorm(f"{b}.ln2", wi)
+      for name in ("query", "key", "value", "proj"):
+        r.linear(f"{b}.attn.{name}", wi, wi)
+      r.linear(f"{b}.mlp.0", 4 * wi, wi)
+      r.linear(f"{b}.mlp.2", wi, 4 * wi)
+    r.layernorm(f"{g}.ln_f", wi)
+    r.linear(f"backbone.lidar_channel_to_img.{i}", wi, wl, 1)
+    r.linear(f"backbone.img_channel_to_lidar.{i}", wl, wi, 1)
+  ch, d = c.bev_features_channels, c.d_model
+  last_l, last_i = lspec["widths"][-1], ispec["widths"][-1]
+  r.linear("backbone.c5_conv", ch, last_l, 1)
+  r.linear("backbone.up_conv5", ch, ch, 3)
+  r.linear("backbone.up_conv4", ch, ch, 3)
+  r.linear("change_channel", d, last_l, 1)
+  r.linear("extra_sensor_encoder.0", 128, 7)
+  r.linear("extra_sensor_encoder.2", d, 128)
+  r.put("extra_sensor_pos_embed", (1, d), "bias")
+  r.batchnorm("velocity_normalization", 1, affine=False)
+  for i in range(c.n_decoder_layers):
+    lp = f"join.layers.{i}"
+    r.mha(f"{lp}.self_attn", d)
+    r.mha(f"{lp}.multihead_attn", d)
+    r.linear(f"{lp}.linear1", 2048, d)
+    r.linear(f"{lp}.linear2", d, 2048)
+    for k in (1, 2, 3):
+      r.layernorm(f"{lp}.norm{k}", d)
+  r.layernorm("join.norm", d)
+  r.put("checkpoint_query", (1, c.checkpoint_len + 1, d), "bias")
+  decoders = ["checkpoint_decoder"]
+  if c.use_wp_gru:
+    r.put("wp_query", (1, c.pred_len, d), "bias")
+    decoders.append("wp_decoder")
+  for p in decoders:
+    r.gru(f"{p}.gru", d, c.gru_hidden, "_l0")
+    r.linear(f"{p}.encoder", c.gru_hidden, 2)
+    r.linear(f"{p}.decoder", 2, c.gru_hidden)
+  r.linear("target_speed_network.0", d, d)
+  r.linear("target_speed_network.2", c.target_speed_bins, d)
+  for p, n in (("semantic_decoder", c.num_semantic), ("depth_decoder", 1)):
+    for k, (o, i) in enumerate(((128, last_i), (64, 128), (32, 64),
+                                (32, 32), (32, 32), (n, 32))):
+      r.linear(f"{p}.deconv{k // 2 + 1}.{2 * (k % 2)}", o, i, 3)
+  r.linear("bev_semantic_decoder.0", ch, ch, 3)
+  r.linear("bev_semantic_decoder.2", c.num_bev_semantic, ch, 1)
+  outs = {"heatmap": c.num_bb_classes, "wh": 2, "offset": 2,
+          "yaw_class": c.num_dir_bins, "yaw_res": 1}
+  if c.bb_velocity_brake:
+    outs.update(velocity=1, brake=2)
+  for name, n in outs.items():
+    r.linear(f"head.{name}_head.0", ch, ch, 3)
+    r.linear(f"head.{name}_head.2", n, ch, 1)
+  return r.sd
+
+
+def reference_plant_sd(pc, seed):
+  """A reference PlanT state dict: HuggingFace BERT under 'model', the
+  token, type, forecast, velocity, waypoint, target-speed and checkpoint
+  modules by the reference's names."""
+  r = RefDraw(seed)
+  h, A = pc.hidden, pc.num_attributes
+  e = "model.embeddings"
+  r.put(f"{e}.position_embeddings.weight", (pc.max_positions, h), "bias")
+  r.put(f"{e}.token_type_embeddings.weight", (2, h), "bias")
+  r.layernorm(f"{e}.LayerNorm", h)
+  for i in range(pc.n_layers):
+    lp = f"model.encoder.layer.{i}"
+    for name in ("query", "key", "value"):
+      r.linear(f"{lp}.attention.self.{name}", h, h)
+    r.linear(f"{lp}.attention.output.dense", h, h)
+    r.layernorm(f"{lp}.attention.output.LayerNorm", h)
+    r.linear(f"{lp}.intermediate.dense", pc.intermediate, h)
+    r.linear(f"{lp}.output.dense", h, pc.intermediate)
+    r.layernorm(f"{lp}.output.LayerNorm", h)
+  r.put("cls_emb", (1, A + 1), "gamma")
+  r.linear("tok_emb", h, A)
+  for i in range(pc.num_types):
+    r.put(f"obj_token.{i}", (1, A), "gamma")
+    r.linear(f"obj_emb.{i}", h, A)
+  for i, v in enumerate(pc.vocab_sizes):
+    r.linear(f"heads.{i}", v, h)
+  r.linear("velocity_encoder.0", 128, 1)
+  r.linear("velocity_encoder.2", 128, 128)
+  r.batchnorm("velocity_normalization", 1, affine=False)
+  r.linear("wp_head", 64 + 2, h + 128)
+  r.gru("wp_decoder", 2 + 3, 64, "")
+  r.linear("wp_output", 2, 64)
+  r.linear("target_speed_network.0", 128, h + 128 + 3)
+  r.linear("target_speed_network.2", pc.target_speed_bins, 128)
+  r.gru("checkpoint_decoder.gru", h, pc.gru_hidden, "_l0")
+  r.linear("checkpoint_decoder.decoder", 2, pc.gru_hidden)
+  return r.sd
+
+
+def converted_ensemble(cfg, maps, lanes, scene, state0, kernels, card):
+  """Phase 29: a reference-layout TransFuser++ ensemble directory written,
+  loaded by load_ensemble_directory and served on the committed scene.
+  Returns (launches in the served ticks, ticks)."""
+  import copy
+  import pickle
+  from carla_garage_tpu_torch.agents.sensor_agent import (
+      make_transfuser_policy, sensor_agent_reset)
+  from carla_garage_tpu_torch.convert.assemble import (
+      load_ensemble_directory, transfuser_config_from_reference)
+  from carla_garage_tpu_torch.models.transfuser import LidarCenterNet
+  from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
+  from carla_garage_tpu_torch.sensors.lidar import lidar_ray_grid
+  from carla_garage_tpu_torch.sim.episode import rollout
+
+  # a published TF++'s config.pickle as a dict: the reference's defaults
+  # with the ground-plane LiDAR channel (the sensor agent's 2 channels)
+  attrs = {"use_ground_plane": True}
+  want_cfg = transfuser_config_from_reference(attrs)
+  with tempfile.TemporaryDirectory() as d:
+    t0 = time.perf_counter()
+    with open(f"{d}/config.pickle", "wb") as f:
+      pickle.dump(attrs, f)
+    for k in range(ENSEMBLE_MEMBERS):
+      torch.save(reference_transfuser_sd(want_cfg, seed=30 + k),
+                 f"{d}/model_{30 + k:04d}.pth")
+    write_s = time.perf_counter() - t0
+    mb = sum(os.path.getsize(p) for p in pathlib.Path(d).iterdir()) / 1e6
+    t0 = time.perf_counter()
+    tcfg, sds = load_ensemble_directory(d)
+    load_s = time.perf_counter() - t0
+  assert tcfg == want_cfg and len(sds) == ENSEMBLE_MEMBERS, tcfg
+  n_par = sum(v.numel() for v in sds[0].values())
+  log(f"  wrote {ENSEMBLE_MEMBERS} reference-layout model_*.pth + "
+      f"config.pickle ({mb:.1f} MB) in {write_s:.2f} s; "
+      f"load_ensemble_directory {load_s:.2f} s ({len(sds[0])} tensors, "
+      f"{n_par / 1e6:.2f}M parameters a member)")
+
+  # member 0, card vs CPU at B=2 in float32
+  rng = np.random.default_rng(29)
+  f32 = lambda a: torch.tensor(a, dtype=torch.float32)
+  x = (f32(rng.uniform(0, 255, (2, tcfg.img_h, tcfg.img_w, 3))),
+       f32(rng.integers(0, 6, (2, tcfg.lidar_h, tcfg.lidar_w,
+                               tcfg.lidar_channels)) / 5.0),
+       f32(rng.normal(0, 10, (2, 2))), f32(np.eye(6)[[1, 3]]),
+       f32(rng.uniform(0, 8, 2)))
+  m_cpu = LidarCenterNet(tcfg, norm="bn_affine").eval()
+  m_cpu.load_state_dict(sds[0], strict=True)
+  with torch.no_grad():
+    want = m_cpu(*x)
+    got = copy.deepcopy(m_cpu).cuda()(*(t.cuda() for t in x))
+  err = leaves_close(got, want, "converted member 0")
+  log(f"  member 0 card vs CPU at B=2 float32: every output within 1e-4 "
+      f"abs + 1e-4 rel, max |diff| {err:.3g}")
+  del m_cpu
+
+  B = state0.tick.shape[0]
+  cam = camera_ray_grid(cfg)
+  lid_f, lid_r = lidar_ray_grid(cfg, half=0), lidar_ray_grid(cfg, half=1)
+  n_lidar = lid_f.shape[0] * lid_f.shape[1]
+  t0 = time.perf_counter()
+  policy = make_transfuser_policy(
+      LidarCenterNet(tcfg, norm="bn_affine").cuda(), sds, tcfg, cam, lid_f,
+      lid_r, direct=True, bf16=True)
+  torch.cuda.synchronize()
+  policy_s = time.perf_counter() - t0
+  st = state0.replace(agent=sensor_agent_reset(cfg, B, n_lidar))
+  gen = torch.Generator(device="cuda").manual_seed(29)
+  st = rollout(cfg, maps, lanes, scene, st, WARMUP, policy, generator=gen)
+  torch.cuda.synchronize()
+  start = st
+  with every_launch_checked() as checked:
+    t0 = time.perf_counter()
+    st, launches = launches_during(kernels, lambda: rollout(
+        cfg, maps, lanes, scene, start, ENSEMBLE_TICKS, policy,
+        generator=gen))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+  assert launches == {"raycast_boxes": 2 * ENSEMBLE_TICKS,
+                      "fill_boxes_bev": 0}, launches
+  assert checked["raycast"] == 2 * ENSEMBLE_TICKS and \
+      checked["differing"] == 0, checked
+  n_leaves = finite_leaves(st, "converted ensemble")
+  assert bool((st.tick > start.tick).all() | start.done.all())
+  log(f"  {ENSEMBLE_MEMBERS}-member converted ensemble (bf16) served "
+      f"{ENSEMBLE_TICKS} ticks at B={B}: {1e3 * dt / ENSEMBLE_TICKS:.2f} "
+      f"ms/tick with every B1 launch checked on a side stream "
+      f"({checked['raycast']} launches bit-equal to the plain version, "
+      f"{checked['host_s']:.2f} host s of checks); policy built in "
+      f"{policy_s:.2f} s; launches {launches}; {n_leaves} state leaves "
+      f"finite; brake share {float(st.agent.prev_control[:, 2].mean()):.3f}"
+      f" ({card})")
+  del policy
+  torch.cuda.empty_cache()
+  return launches, ENSEMBLE_TICKS
+
+
+def converted_plant(cfg, maps, lanes, scene, state0, kernels, card):
+  """Phase 30: an HF-BERT-layout PlanTConfig() state dict through
+  convert_plant into the port's PlanT, card against CPU at B=2, then PlanT
+  ticks on the committed scene. Returns the launches (none)."""
+  import copy
+  from carla_garage_tpu_torch.agents.plant_agent import (make_plant_policy,
+                                                         plant_agent_reset)
+  from carla_garage_tpu_torch.convert.torch_import import convert_plant
+  from carla_garage_tpu_torch.models.plant import PlanT, PlanTConfig
+  from carla_garage_tpu_torch.sim.episode import rollout
+
+  pcfg = PlanTConfig()
+  t0 = time.perf_counter()
+  sd = convert_plant(reference_plant_sd(pcfg, seed=30), pcfg.n_layers)
+  model = PlanT(pcfg).eval()
+  model.load_state_dict(sd, strict=True)
+  conv_s = time.perf_counter() - t0
+  rng = np.random.default_rng(30)
+  O, R = pcfg.max_objects, pcfg.num_route_points
+  f32 = lambda a: torch.tensor(a, dtype=torch.float32)
+  x = (f32(rng.normal(0, 5, (2, O, 7))),
+       torch.tensor(rng.integers(0, 4, (2, O)), dtype=torch.int32),
+       f32(rng.normal(0, 10, (2, R, 2))), f32([0, 1]), f32([1, 0]),
+       f32([0, 1]), f32(rng.uniform(0, 8, 2)))
+  with torch.no_grad():
+    want = model(*x)
+    model = model.cuda()
+    got = model(*(t.cuda() for t in x))
+  err = leaves_close(got, want, "converted PlanT")
+  B = state0.tick.shape[0]
+  policy = make_plant_policy(model, None, pcfg, direct=True, creep=True)
+  st = state0.replace(agent=plant_agent_reset(cfg, B))
+  gen = torch.Generator(device="cuda").manual_seed(30)
+  st, launches = launches_during(kernels, lambda: rollout(
+      cfg, maps, lanes, scene, st, PLANT_CONVERTED_TICKS, policy,
+      generator=gen))
+  torch.cuda.synchronize()
+  assert not any(launches.values()), launches
+  n_leaves = finite_leaves(st, "converted PlanT ticks")
+  log(f"  PlanTConfig() from a reference-layout state dict "
+      f"({len(sd)} tensors, converted and loaded strict in {conv_s:.2f} s); "
+      f"card vs CPU at B=2 float32 max |diff| {err:.3g} (bar 1e-4 abs + "
+      f"1e-4 rel); {PLANT_CONVERTED_TICKS} PlanT ticks at B={B} on "
+      f"the committed scene, {n_leaves} state leaves finite, launches "
+      f"{launches} ({card})")
+  del model, policy
+  return launches
+
+
 def main():
   ap = argparse.ArgumentParser()
   ap.add_argument("--profile", metavar="PATH",
@@ -2637,6 +3056,7 @@ def main():
   # float32 comparisons below run without TF32 (matmuls and cuDNN convs)
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
+  t_script = time.perf_counter()
   card = card_line()
   kind = torch.cuda.get_device_name(0)
   clock = PhaseClock()
@@ -2837,6 +3257,19 @@ def main():
   disk_train_launches = disk_train(cfg, disk.name, kernels, card)
   disk.cleanup()
 
+  clock.start("the remaining models at full width: AIM, the BEV encoder, "
+              "R(2+1)D, Video Swin 3D, the TransFuser GRU head")
+  models_launches = remaining_models(kernels, card)
+
+  clock.start("a reference-layout TransFuser++ ensemble converted and "
+              "served")
+  ensemble_launches, ensemble_ticks = converted_ensemble(
+      cfg, maps, lanes, scene, state0, kernels, card)
+
+  clock.start("PlanT from a reference-layout state dict")
+  plant_conv_launches = converted_plant(cfg, maps, lanes, scene, state0,
+                                        kernels, card)
+
   clock.start("output")
   n_leaves = 0
   for path, x in tree_items(state):
@@ -2870,7 +3303,10 @@ def main():
                     "bench_carla_sensor":
                         carla_launches["bench_carla_sensor"][name],
                     "disk_export": export_launches[name],
-                    "disk_train": disk_train_launches[name]}
+                    "disk_train": disk_train_launches[name],
+                    "models_extra": models_launches[name],
+                    "converted_ensemble": ensemble_launches[name],
+                    "converted_plant": plant_conv_launches[name]}
              for name in kernels}
   log(f"  launches: {by_path} (tick: {TICKS} ticks, train_step: "
       f"{TRAIN_STEPS} steps, eval: {eval_ticks} ticks, dagger: "
@@ -2882,7 +3318,9 @@ def main():
       f"bench_carla_expert: {carla_ticks['bench_carla_expert']} ticks, "
       f"bench_carla_sensor: {carla_ticks['bench_carla_sensor']} ticks, "
       f"disk_export: {EXPORT_FRAMES} frames, disk_train: {1 + DISK_STEPS} "
-      f"steps, entry_*: whole runs)")
+      f"steps, models_extra: 5 forwards, converted_ensemble: "
+      f"{ensemble_ticks} ticks, converted_plant: {PLANT_CONVERTED_TICKS} "
+      f"ticks, entry_*: whole runs)")
   (c_ms, c_plain, c_cost), (s_ms, s_plain, s_cost), (f_ms, f_plain,
                                                      f_cost) = (
       export_times[k] for k in ("camera", "sweep", "fill"))
@@ -2894,6 +3332,7 @@ def main():
       f"(bound {bound(*f_cost)[0]:.6f} ms by {bound(*f_cost)[1]}; plain "
       f"{f_plain:.3f} ms)")
   clock.stop()
+  log(f"chip_smoke.py wall time {time.perf_counter() - t_script:.1f} s")
 
   log(card)
   log(json.dumps({"kernels": [

@@ -289,4 +289,5 @@ def make_plant_policy(model: PlanT, params, pcfg: PlanTConfig,
     return Control(steer=steer, throttle=throttle, brake=brake), \
         {"agent": new_ag}
 
+  policy.draw_specs = ()                # the policy draws nothing
   return policy

@@ -310,6 +310,10 @@ def make_transfuser_policy(model: LidarCenterNet, params,
         clear_stop=clear_stop.to(torch.int32))
     return control, {"agent": new_ag}
 
+  # the draws in the order the policy takes them from a generator: GNSS,
+  # compass, then the LiDAR half sweep's dropoff
+  policy.draw_specs = (("gps", (2,), "normal"), ("compass", (), "normal"),
+                       ("lidar", (g_front.shape[0],), "uniform"))
   return policy
 
 

@@ -7,8 +7,16 @@ CARLA server each. Here every route x repetition is one batch element:
 town's) as one chunked rollout on the imported towns of an asset root, and
 ``run_synthetic_benchmark`` does the same on the procedural town. Records
 follow the leaderboard's StatisticsManager JSON layout and the CSV summary
-mirrors its result parser. Sharding the episodes over several cards is
-the multi-GPU layer's, which is not ported.
+mirrors its result parser.
+
+With a data-parallel ``mesh`` (``parallel/mesh.py``), the job farm's
+axis: every rank builds the whole batch, padded to a multiple of the rank
+count, keeps its contiguous slice of the episodes (with the slice of the
+agent state and of every tick's draws) and rolls it out with no
+collective inside the rollout, so ranks may stop after different chunk
+counts. The records are then gathered in global episode order, padding
+dropped, and every rank returns them all; rank 0 alone writes the
+analysis files, and a caller writes the endpoint JSON and CSV on rank 0.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from carla_garage_tpu_torch.device import resolve_device
 from carla_garage_tpu_torch.eval.analysis import (events_from_criteria,
                                                   write_analysis)
 from carla_garage_tpu_torch.maps import importer
+from carla_garage_tpu_torch.parallel import mesh as mesh_lib
 from carla_garage_tpu_torch.sim.episode import (rollout_chunked,
                                                 rollout_recorded)
 from carla_garage_tpu_torch.sim.expert import expert_step
@@ -36,12 +45,14 @@ from carla_garage_tpu_torch.sim.scene_builder import (build_batch,
                                                       compile_route,
                                                       make_synthetic_batch)
 from carla_garage_tpu_torch.sim.scoring import compute_scores
-from carla_garage_tpu_torch.structs import tree_map
+from carla_garage_tpu_torch.structs import (ScenarioSpecs, ScenarioState,
+                                            tree_map)
 
 INFRACTION_KEYS = ("collisions_pedestrian", "collisions_vehicle",
                    "collisions_layout", "red_light", "stop_infraction")
 CHUNK = 512                      # run_synthetic_benchmark's ticks a chunk
 CARLA_CHUNK = 1024               # run_carla_benchmark's ticks a chunk
+RECORD_CHUNK = 1000              # and with analysis_dir (recorded)
 
 
 def _route_lens(scene) -> np.ndarray:
@@ -51,10 +62,11 @@ def _route_lens(scene) -> np.ndarray:
   return np.array([seg[i, :nv[i]].sum() for i in range(len(nv))])
 
 
-def _records(cfg, scene, state, route_ids, town):
+def _records(cfg, scene, state, route_ids, town, first_index: int = 0):
   """One leaderboard record per episode (None route ids are skipped). The
   scores are computed on the state's device; criteria, scores and ticks
-  then move to the host once."""
+  then move to the host once. first_index: the global index of the
+  batch's first episode (a data-parallel rank's offset)."""
   lens = _route_lens(scene)
   cr_dev = state.criteria
   scores = compute_scores(cfg, cr_dev, torch.as_tensor(
@@ -87,7 +99,7 @@ def _records(cfg, scene, state, route_ids, town):
     recs.append({
         "route_id": rid,
         "town": town,
-        "index": i,
+        "index": first_index + i,
         "status": status,
         "infractions": {k: int(counts[k][i]) for k in INFRACTION_KEYS},
         "events": events_from_criteria(cr, i),
@@ -143,24 +155,88 @@ def run_synthetic_benchmark(cfg: GlobalConfig = None, n_routes: int = 8,
 
 
 def _rollout_chunked_recorded(cfg, maps, lanes, scene, state, max_ticks,
-                              chunk: int = 1000, every: int = 10,
+                              chunk: int | None = None, every: int = 10,
                               policy=expert_step,
-                              generator: torch.Generator | None = None):
+                              generator: torch.Generator | None = None,
+                              draw_fn=None):
   """Chunked rollout that also concatenates the decimated trajectory logs
-  on the host, with rollout_chunked's early exit. Returns (final state,
-  {name: numpy [T,B,...]})."""
+  on the host, with rollout_chunked's early exit (chunk: RECORD_CHUNK
+  when None). Returns (final state, {name: numpy [T,B,...]})."""
+  chunk = chunk or RECORD_CHUNK
   chunks = []
   ticks = 0
   while ticks < max_ticks:
     state, traj = rollout_recorded(cfg, maps, lanes, scene, state, chunk,
                                    every=every, policy=policy,
-                                   generator=generator)
+                                   generator=generator, draw_fn=draw_fn)
     chunks.append({k: v.cpu().numpy() for k, v in traj.items()})
     ticks += chunk
     if bool(state.done.all()):
       break
   return state, {k: np.concatenate([c[k] for c in chunks], 0)
                  for k in chunks[0]}
+
+
+def _pad_for_mesh(mesh, eps, ids, extras=()):
+  """Pad the episode list to a multiple of the mesh size by repeating the
+  last episode; padded ids become None so their records are dropped.
+  Returns (eps, ids, extras) with every list padded in lockstep."""
+  n = mesh.size
+  pad = (-len(eps)) % n
+  if pad:
+    eps = list(eps) + [eps[-1]] * pad
+    ids = list(ids) + [None] * pad
+    extras = tuple(list(e) + [e[-1]] * pad for e in extras)
+  return eps, ids, extras
+
+
+def _shard_episode_batch(mesh, maps, lanes, scene, state):
+  """The rank's slice of the episode batch; the town rasters and lanes
+  whole on every rank (each rank built them, bit-equal) -- the job-farm
+  axis of evaluate_routes_slurm.py:124-312 as a mesh axis."""
+  B = int(scene.route.num_valid.shape[0])
+  return (maps, lanes, mesh_lib.shard_leading(mesh, scene, B),
+          mesh_lib.shard_leading(mesh, state, B))
+
+
+def _sharded_draw_fn(mesh, policy, scene, state, generator):
+  """A ``rollout`` draw_fn that draws each tick's draws for the whole
+  (global) batch from `generator`, in the order one process draws them
+  (the policy's ``draw_specs``, then the scenario engine's control-loss
+  noise), and returns the rank's slice: n ranks then see the draws one
+  process sees. None where the policy declares no ``draw_specs`` (the
+  rank then draws its own from the generator)."""
+  specs = getattr(policy, "draw_specs", None)
+  if specs is None:
+    return None
+  specs = list(specs)
+  if isinstance(scene.scenarios, ScenarioSpecs) and \
+      isinstance(state.scenario, ScenarioState):
+    specs.append(("control_loss", (scene.scenarios.kind.shape[1],),
+                  "normal"))
+  B = int(state.tick.shape[0])
+  dev = state.tick.device
+
+  def draw():
+    d = {key: (torch.randn if kind == "normal" else torch.rand)(
+        (B,) + tuple(shape), generator=generator, device=dev)
+         for key, shape, kind in specs}
+    return mesh_lib.shard_leading(mesh, d, B)
+
+  return draw
+
+
+def _gather_traj(mesh, traj: dict) -> dict:
+  """Every rank's decimated log concatenated over the episodes. A rank
+  that stopped earlier logged fewer snapshots: its last snapshot repeats
+  (its episodes were done, and a done episode's state stays frozen)."""
+  parts = mesh_lib.gather_objects(mesh, traj)
+  T = max(next(iter(p.values())).shape[0] for p in parts)
+
+  def pad(a):
+    return np.concatenate([a, np.repeat(a[-1:], T - a.shape[0], 0)], 0)
+
+  return {k: np.concatenate([pad(p[k]) for p in parts], 1) for k in traj}
 
 
 def _scenario_setup(cfg, scen_ann, episodes, town, seed: int,
@@ -180,7 +256,7 @@ def run_carla_benchmark(cfg: GlobalConfig = None, benchmark: str = "longest6",
                         single_batch: bool = False,
                         verbose: bool = True,
                         analysis_dir: str | None = None,
-                        agent_reset=None, device="cuda"):
+                        agent_reset=None, device="cuda", mesh=None):
   """Run a benchmark's routes (``leaderboard/data/{benchmark}.xml`` under
   `assets_root`, else $CGT_ASSETS_ROOT) on their imported towns.
   Returns (records, global record).
@@ -201,7 +277,12 @@ def run_carla_benchmark(cfg: GlobalConfig = None, benchmark: str = "longest6",
   learned agent's, which carries its weights); agent_reset(cfg, B,
   device=...) gives the agent state installed as ``state.agent`` before
   the rollout. Each rollout draws from a ``torch.Generator`` seeded with
-  `seed`."""
+  `seed`.
+
+  mesh: a data-parallel mesh (``parallel/mesh.py``) whose ranks each call
+  this with the same arguments. The episode batch is padded to a multiple
+  of the rank count and sharded over the ranks, each rolling out its own
+  slice; every rank returns all records, in episode order."""
   cfg = cfg or (longest6_config() if benchmark == "longest6"
                 else GlobalConfig())
   dev = resolve_device(device)
@@ -217,7 +298,7 @@ def run_carla_benchmark(cfg: GlobalConfig = None, benchmark: str = "longest6",
     return _run_single_batch(cfg, by_town, root, reps, n_vehicles,
                              n_walkers, max_ticks, seed, policy,
                              use_scenarios, verbose, agent_reset, dev,
-                             gen())
+                             gen(), mesh=mesh)
 
   records = []
   for town_name, town_routes in sorted(by_town.items()):
@@ -237,6 +318,8 @@ def run_carla_benchmark(cfg: GlobalConfig = None, benchmark: str = "longest6",
       for r, ep in zip(town_routes, compiled):
         eps.append(ep)
         ids.append(f"{r.route_id}_rep{rep}")
+    if mesh is not None:
+      eps, ids, _ = _pad_for_mesh(mesh, eps, ids)
     walker_sites = None
     scenario_npcs = None
     if use_scenarios:
@@ -252,17 +335,29 @@ def run_carla_benchmark(cfg: GlobalConfig = None, benchmark: str = "longest6",
       state = state.replace(scenario=scen_state)
     if agent_reset is not None:
       state = state.replace(agent=agent_reset(cfg, len(eps), device=dev))
+    generator, sharded, first = gen(), {}, 0
+    if mesh is not None:
+      sharded["draw_fn"] = _sharded_draw_fn(mesh, policy, scene, state,
+                                            generator)
+      maps, lanes, scene, state = _shard_episode_batch(
+          mesh, maps, lanes, scene, state)
+      part = mesh_lib.shard_slice(mesh, len(eps))
+      ids, first = ids[part], part.start
     if analysis_dir:
       final, traj = _rollout_chunked_recorded(
           cfg, maps, lanes, scene, state, max_ticks, policy=policy,
-          generator=gen())
+          generator=generator, **sharded)
     else:
       final = rollout_chunked(cfg, maps, lanes, scene, state, max_ticks,
                               chunk=CARLA_CHUNK, policy=policy,
-                              generator=gen())
-    recs = _records(cfg, scene, final, ids, town_name)
+                              generator=generator, **sharded)
+    recs = _records(cfg, scene, final, ids, town_name, first_index=first)
+    if mesh is not None:
+      recs = mesh_lib.gather_records(mesh, recs)
+      if analysis_dir:
+        traj = _gather_traj(mesh, traj)
     records += recs
-    if analysis_dir:
+    if analysis_dir and (mesh is None or mesh.rank == 0):
       tw = town_adapter
       write_analysis(
           analysis_dir,
@@ -280,8 +375,9 @@ def run_carla_benchmark(cfg: GlobalConfig = None, benchmark: str = "longest6",
 
 def _run_single_batch(cfg, by_town, root, reps, n_vehicles, n_walkers,
                       max_ticks, seed, policy, use_scenarios, verbose,
-                      agent_reset, device, generator):
-  """All routes of all towns in one mixed-town batch and one rollout."""
+                      agent_reset, device, generator, mesh=None):
+  """All routes of all towns in one mixed-town batch and one rollout
+  (under a mesh, the rank's slice of it)."""
   t0 = time.time()
   towns, eps, ids, town_idx, town_names, anns = [], [], [], [], [], []
   for ti, (town_name, town_routes) in enumerate(sorted(by_town.items())):
@@ -297,6 +393,9 @@ def _run_single_batch(cfg, by_town, root, reps, n_vehicles, n_walkers,
         town_idx.append(ti)
         town_names.append(town_name)
         anns.append(ann)
+  if mesh is not None:
+    eps, ids, (town_idx, town_names, anns) = _pad_for_mesh(
+        mesh, eps, ids, (town_idx, town_names, anns))
   if verbose:
     print(f"compiled {len(eps)} episodes over {len(towns)} towns "
           f"in {time.time() - t0:.0f}s", flush=True)
@@ -316,14 +415,23 @@ def _run_single_batch(cfg, by_town, root, reps, n_vehicles, n_walkers,
     state = state.replace(scenario=scen_state)
   if agent_reset is not None:
     state = state.replace(agent=agent_reset(cfg, len(eps), device=device))
+  sharded = {}
+  if mesh is not None:
+    sharded["draw_fn"] = _sharded_draw_fn(mesh, policy, scene, state,
+                                          generator)
+    maps, lanes, scene, state = _shard_episode_batch(mesh, maps, lanes,
+                                                     scene, state)
+    part = mesh_lib.shard_slice(mesh, len(eps))
+    ids, town_names = ids[part], town_names[part]
   t1 = time.time()
   final = rollout_chunked(cfg, maps, lanes, scene, state, max_ticks,
                           chunk=CARLA_CHUNK, policy=policy,
-                          generator=generator)
+                          generator=generator, **sharded)
   records = []
   for i, (rid, tn) in enumerate(zip(ids, town_names)):
     records += _records(cfg, tree_slice(scene, i), tree_slice(final, i),
                         [rid], tn)
+  records = mesh_lib.gather_records(mesh, records)
   if verbose:
     print(f"rollout: {len(eps)} episodes in {time.time() - t1:.0f}s",
           flush=True)

@@ -4,13 +4,20 @@ cross entropy, class-weighted focal cross entropy, masked L1.
 ``one_hot`` is a comparison with the class range, as ``jax.nn.one_hot``:
 a label outside the range gives a zero row, and nothing is checked on the
 host (``F.one_hot`` checks its labels, which waits for the device on the
-CPU and asserts on the card)."""
+CPU and asserts on the card).
+
+Under a data-parallel mesh (``parallel/mesh.py``) each rank holds a slice
+of the batch: a denominator that counts labels or weights is summed over
+the ranks (detached), and a plain mean is the rank's share of the global
+mean, so the ranks' losses sum to the global loss and their gradients to
+the global gradient. ``mesh=None`` computes on the batch given."""
 
 from __future__ import annotations
 
 import torch
 
 from carla_garage_tpu_torch.device import const
+from carla_garage_tpu_torch.parallel.mesh import global_sum, share_mean
 
 
 def one_hot(labels: torch.Tensor, num: int,
@@ -20,7 +27,7 @@ def one_hot(labels: torch.Tensor, num: int,
 
 
 def cross_entropy(logits, labels, weights=None, label_smoothing=0.0,
-                  sample_weight=None):
+                  sample_weight=None, mesh=None):
   """CE over the last axis; labels int [..]. Per-class weights [C] optional;
   sample_weight broadcasts against the label shape (e.g. [B] per-sample
   quality gates). Returns the (weighted) mean over all elements."""
@@ -31,7 +38,7 @@ def cross_entropy(logits, labels, weights=None, label_smoothing=0.0,
   logp = torch.log_softmax(logits, -1)
   ce = -torch.sum(lab * logp, -1)
   if weights is None and sample_weight is None:
-    return torch.mean(ce)
+    return share_mean(mesh, ce)
   w = torch.ones_like(ce)
   if weights is not None:
     w = w * const(weights, logits.device)[labels.long()]
@@ -39,10 +46,11 @@ def cross_entropy(logits, labels, weights=None, label_smoothing=0.0,
     sw = sample_weight.reshape(sample_weight.shape +
                                (1,) * (ce.ndim - sample_weight.ndim))
     w = w * sw
-  return torch.sum(ce * w) / torch.clamp(torch.sum(w), min=1e-6)
+  return torch.sum(ce * w) / torch.clamp(global_sum(mesh, torch.sum(w)),
+                                         min=1e-6)
 
 
-def focal_ce(logits, labels, gamma=2.0, weights=None):
+def focal_ce(logits, labels, gamma=2.0, weights=None, mesh=None):
   """Class-weighted focal cross entropy (focal_loss.py:1-134)."""
   logp = torch.log_softmax(logits, -1)
   p = torch.exp(logp)
@@ -52,11 +60,12 @@ def focal_ce(logits, labels, gamma=2.0, weights=None):
   loss = -torch.pow(1 - pt, gamma) * lpt
   if weights is not None:
     w = const(weights, logits.device)[labels.long()]
-    return torch.sum(loss * w) / torch.clamp(torch.sum(w), min=1e-6)
-  return torch.mean(loss)
+    return torch.sum(loss * w) / torch.clamp(global_sum(mesh, torch.sum(w)),
+                                             min=1e-6)
+  return share_mean(mesh, loss)
 
 
-def l1_masked(pred, target, mask):
+def l1_masked(pred, target, mask, mesh=None):
   """Mean absolute error over masked elements (avg-factor semantics of
   center_net.py:77-123)."""
   err = torch.abs(pred - target)
@@ -64,4 +73,5 @@ def l1_masked(pred, target, mask):
   while m.ndim < err.ndim:
     m = m[..., None]
   m = m.expand(err.shape)
-  return torch.sum(err * m) / torch.clamp(torch.sum(m), min=1e-6)
+  return torch.sum(err * m) / torch.clamp(global_sum(mesh, torch.sum(m)),
+                                          min=1e-6)

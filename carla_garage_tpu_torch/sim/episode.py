@@ -99,13 +99,16 @@ def rollout(cfg: GlobalConfig, maps: MapStack, lanes: LaneGraph,
             scene: Scene, state: SimState, n_ticks: int,
             policy: PolicyFn = expert_step,
             generator: torch.Generator | None = None,
-            draws: list | None = None) -> SimState:
+            draws: list | None = None, draw_fn=None) -> SimState:
   """Run n_ticks of simulation. draws: one dict of draws per tick, or None
-  to draw every tick's noise from `generator`."""
+  to take each tick's from draw_fn() when given (a data-parallel rank's
+  slice of the global draws, ``eval/benchmark._sharded_draw_fn``), else to
+  draw every tick's noise from `generator`."""
   for i in range(n_ticks):
+    tick = draws[i] if draws is not None else \
+        (draw_fn() if draw_fn is not None else None)
     state = sim_step(cfg, maps, lanes, scene, state, policy,
-                     generator=generator,
-                     draws=draws[i] if draws is not None else None)
+                     generator=generator, draws=tick)
   return state
 
 
@@ -143,7 +146,7 @@ def rollout_recorded(cfg: GlobalConfig, maps: MapStack, lanes: LaneGraph,
                      scene: Scene, state: SimState, n_ticks: int,
                      every: int = 10, policy: PolicyFn = expert_step,
                      generator: torch.Generator | None = None,
-                     draws: list | None = None):
+                     draws: list | None = None, draw_fn=None):
   """Rollout that also records a decimated trajectory log (the
   ScenarioLogger analog: every 10th frame, the nearby actors) for replay
   clips and infraction maps.
@@ -152,13 +155,14 @@ def rollout_recorded(cfg: GlobalConfig, maps: MapStack, lanes: LaneGraph,
   T' = n_ticks // every snapshots, each taken after `every` ticks: ego
   (x, y, yaw, speed), the 8 nearest vehicles and 2 nearest walkers
   (position, yaw, valid), tick and alive. draws: one dict per tick
-  (T' * every of them), or None to draw from `generator`."""
+  (T' * every of them), or None to take them from draw_fn or
+  `generator` as ``rollout`` does."""
   snaps = []
   for f in range(n_ticks // every):
     state = rollout(cfg, maps, lanes, scene, state, every, policy,
                     generator=generator,
                     draws=draws[f * every:(f + 1) * every]
-                    if draws is not None else None)
+                    if draws is not None else None, draw_fn=draw_fn)
     snaps.append(_snapshot(state))
   if not snaps:
     return state, {}
@@ -169,14 +173,16 @@ def rollout_chunked(cfg: GlobalConfig, maps: MapStack, lanes: LaneGraph,
                     scene: Scene, state: SimState, max_ticks: int,
                     chunk: int = 256, policy: PolicyFn = expert_step,
                     watchdog_s: float | None = 1800.0,
-                    generator: torch.Generator | None = None) -> SimState:
+                    generator: torch.Generator | None = None,
+                    draw_fn=None) -> SimState:
   """Rollout in chunks of `chunk` ticks with an early exit once every
   episode is done. Whole chunks run, so the ticks may pass max_ticks.
 
   The only host sync is the done check after each chunk; the ticks inside
   a chunk make none. watchdog_s arms a hang watchdog, re-armed once per
   chunk, that raises KeyboardInterrupt on the main thread when a chunk
-  takes longer (a wedged device or a pathological first compile)."""
+  takes longer (a wedged device or a pathological first compile).
+  draw_fn: as ``rollout`` takes it."""
   wd = Watchdog(watchdog_s) if watchdog_s else None
   if wd:
     wd.start()
@@ -184,7 +190,7 @@ def rollout_chunked(cfg: GlobalConfig, maps: MapStack, lanes: LaneGraph,
     ticks = 0
     while ticks < max_ticks:
       state = rollout(cfg, maps, lanes, scene, state, chunk, policy,
-                      generator=generator)
+                      generator=generator, draw_fn=draw_fn)
       ticks += chunk
       all_done = bool(torch.all(state.done))     # the chunk's one host sync
       if wd:

@@ -35,6 +35,9 @@ REPLAN_EVERY = 4   # the forecast re-plans steering every 4 frames (0.2 s)
 LOCAL = 128        # route points the forecast reads ahead of the pointer
 # draws: steer_noise [B] standard normals
 DRAW_KEYS = ("steer_noise",)
+# (key, per-episode shape, distribution) of each draw, in the order the
+# policy draws them from a generator (``expert_step.draw_specs``)
+DRAW_SPECS = (("steer_noise", (), "normal"),)
 
 
 @dataclasses.dataclass
@@ -426,3 +429,6 @@ def expert_step(cfg: GlobalConfig, maps: MapStack, scene: Scene,
                     throttle=torch.where(brake, 0.0, throttle),
                     brake=out_brake)
   return control, {"expert": new_ex}
+
+
+expert_step.draw_specs = DRAW_SPECS

@@ -34,6 +34,7 @@ from carla_garage_tpu_torch.agents.plant_agent import OBJECT_RANGE_M
 from carla_garage_tpu_torch.config import GlobalConfig
 from carla_garage_tpu_torch.models.plant import ObjType, PlanT, PlanTConfig
 from carla_garage_tpu_torch.ops.losses import cross_entropy
+from carla_garage_tpu_torch.parallel import mesh as mesh_lib
 from carla_garage_tpu_torch.sim import geometry as geo
 from carla_garage_tpu_torch.sim.datagen import (Frames, checkpoint_labels,
                                                 target_speed_labels,
@@ -227,21 +228,25 @@ def _apply(model: PlanT, batch):
 
 
 def plant_loss(model: PlanT, batch, log_vars=None,
-               speed_weights=SPEED_WEIGHTS):
+               speed_weights=SPEED_WEIGHTS, mesh=None):
   """(total, aux) of one batch with the model's own parameters. log_vars:
   {loss key: scalar} switches the unit weights to Kendall's learned
-  weighting (train.py:384-456)."""
+  weighting (train.py:384-456). mesh: the batch is this rank's slice of
+  the rows, and the losses its shares of the global losses (the
+  denominators summed over the ranks)."""
   out = _apply(model, batch)
   wp_err = torch.mean(torch.abs(out["pred_wp"] - batch["wp_label"]), (1, 2))
   ww = batch.get("wp_weight")
-  wp_loss = torch.mean(wp_err) if ww is None else \
-      torch.sum(wp_err * ww) / torch.clamp(torch.sum(ww), min=1.0)
+  wp_loss = mesh_lib.share_mean(mesh, wp_err) if ww is None else \
+      torch.sum(wp_err * ww) / torch.clamp(
+          mesh_lib.global_sum(mesh, torch.sum(ww)), min=1.0)
   losses = {
       "wp": wp_loss,
       "speed": cross_entropy(out["pred_target_speed"], batch["speed_label"],
-                             weights=speed_weights, label_smoothing=0.1),
-      "ckpt": torch.mean(torch.abs(out["pred_checkpoint"] -
-                                   batch["ckpt_label"])),
+                             weights=speed_weights, label_smoothing=0.1,
+                             mesh=mesh),
+      "ckpt": mesh_lib.share_mean(mesh, torch.abs(out["pred_checkpoint"] -
+                                                  batch["ckpt_label"])),
   }
   fc_total = 0.0
   for i, logits in enumerate(out["pred_forecast"]):
@@ -251,10 +256,11 @@ def plant_loss(model: PlanT, batch, log_vars=None,
     ce = -torch.gather(torch.log_softmax(logits, -1), -1,
                        lab_safe[..., None])[..., 0]
     fc_total = fc_total + torch.sum(torch.where(ok, ce, 0.0)) / \
-        torch.clamp(torch.sum(ok), min=1).to(ce.dtype)
+        torch.clamp(mesh_lib.global_sum(mesh, torch.sum(ok)),
+                    min=1).to(ce.dtype)
   losses["forecast"] = fc_total / len(out["pred_forecast"])
   if log_vars is not None:
-    loss = uncertainty_weighted_total(losses, log_vars)
+    loss = uncertainty_weighted_total(losses, log_vars, mesh)
   else:
     loss = sum(losses.values())
   aux = {f"loss_{k}": v for k, v in losses.items()}
@@ -264,16 +270,28 @@ def plant_loss(model: PlanT, batch, log_vars=None,
 
 def make_train_step(model: PlanT, optimizer: torch.optim.Optimizer,
                     scheduler=None, log_vars: dict | None = None,
-                    speed_weights=SPEED_WEIGHTS):
+                    speed_weights=SPEED_WEIGHTS, mesh=None):
   """train_step(batch) -> aux losses as device tensors: one gradient step
   on the batch, then the scheduler's step. log_vars: Kendall
-  log-variances (in the optimizer) or None for unit weights. No host
-  sync."""
+  log-variances (in the optimizer) or None for unit weights. No host sync
+  without a mesh.
+
+  mesh: data parallel over its ranks. The batch is the global one, as on
+  one process; each rank takes its slice of the rows, the gradients are
+  summed over the ranks before the step, and the aux losses returned are
+  the global ones."""
+  params = [p for g in optimizer.param_groups for p in g["params"]]
+
   def train_step(batch):
     optimizer.zero_grad(set_to_none=True)
+    if mesh is not None:
+      batch = mesh_lib.shard_leading(mesh, batch, batch["boxes"].shape[0])
     loss, aux = plant_loss(model, batch, log_vars=log_vars,
-                           speed_weights=speed_weights)
+                           speed_weights=speed_weights, mesh=mesh)
     loss.backward()
+    if mesh is not None:
+      mesh_lib.all_reduce_grads(mesh, params)
+      aux = mesh_lib.all_reduce_aux(mesh, aux)
     optimizer.step()
     if scheduler is not None:
       scheduler.step()

@@ -77,17 +77,20 @@ def make_schedule(schedule: str | None, steps: int):
   raise ValueError(f"unknown schedule {schedule!r}")
 
 
-def uncertainty_weighted_total(losses: dict, log_vars: dict):
+def uncertainty_weighted_total(losses: dict, log_vars: dict, mesh=None):
   """Kendall multi-task weighting: sum exp(-s_i) L_i + s_i (the learned
   alternative to fixed loss weights, train.py:384-456). Loss keys without
-  a learned variance fall back to unit weight."""
+  a learned variance fall back to unit weight. Under a data-parallel mesh
+  the losses are the rank's shares, and each rank adds s_i / n, so that
+  the ranks' totals sum to the global total with s_i counted once."""
   total = 0.0
   for k, v in losses.items():
     s = log_vars.get(k)
     if s is None:
       total = total + v
     else:
-      total = total + torch.exp(-s) * v + s
+      total = total + torch.exp(-s) * v + (s if mesh is None
+                                           else s / mesh.size)
   return total
 
 

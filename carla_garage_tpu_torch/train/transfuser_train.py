@@ -14,6 +14,14 @@ camera and LiDAR inputs; no autocast. A step accumulates the gradients of
 K micro-batches, one recorded frame of every episode each, and makes no
 host sync: frame indices are host ints, and the random draws (LiDAR
 dropoff, speed-input dropout) come as tensors or from a generator.
+
+Data parallel (``mesh``, ``parallel/mesh.py``): every rank holds the whole
+dataset and renders its slice of the episodes; the loss's denominators
+are summed over the ranks, so each rank's loss is its share of the global
+loss; the step sums the ranks' gradients in one bucketed all-reduce, then
+clips and steps on every rank (ZeRO-1 AdamW from ``make_optimizer``). The
+draws of the global batch are sliced, so n ranks compute what one process
+computes on the same draws.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
 from carla_garage_tpu_torch.ops import detection as det
 from carla_garage_tpu_torch.ops.losses import (cross_entropy, l1_masked,
                                                one_hot)
+from carla_garage_tpu_torch.parallel import mesh as mesh_lib
 from carla_garage_tpu_torch.sensors.bev import render_bev_semantics
 from carla_garage_tpu_torch.sensors.camera import render_camera
 from carla_garage_tpu_torch.sensors.lidar import render_lidar
@@ -226,12 +235,12 @@ def _forward(model: LidarCenterNet, params, batch):
 
 
 def _losses(tcfg: TransfuserConfig, out, batch, log_vars=None,
-            speed_weights=SPEED_WEIGHTS):
+            speed_weights=SPEED_WEIGHTS, mesh=None):
   # per-sample quality weights [B] (post-done frames weigh 0)
   sw = batch.get("sample_w")
   if sw is None:
     sw = torch.ones_like(batch["speed"])
-  swn = torch.clamp(torch.sum(sw), min=1e-6)
+  swn = torch.clamp(mesh_lib.global_sum(mesh, torch.sum(sw)), min=1e-6)
 
   def wmean(x):
     per = x.reshape(x.shape[0], -1).mean(1)
@@ -242,7 +251,8 @@ def _losses(tcfg: TransfuserConfig, out, batch, log_vars=None,
       torch.abs(out["pred_checkpoint"] - batch["ckpt_label"]))
   losses["target_speed"] = cross_entropy(
       out["pred_target_speed"], batch["speed_label"],
-      weights=speed_weights, label_smoothing=0.1, sample_weight=sw)
+      weights=speed_weights, label_smoothing=0.1, sample_weight=sw,
+      mesh=mesh)
   if "pred_wp" in out:
     # wp_w 0 for DAgger frames: their future ego positions are the learned
     # policy's own trajectory, not expert waypoints
@@ -250,14 +260,15 @@ def _losses(tcfg: TransfuserConfig, out, batch, log_vars=None,
         batch.get("wp_w", 1.0)
   if "pred_semantic" in out:
     losses["semantic"] = cross_entropy(out["pred_semantic"],
-                                       batch["semantic"], sample_weight=sw)
+                                       batch["semantic"], sample_weight=sw,
+                                       mesh=mesh)
   if "pred_depth" in out:
     losses["depth"] = wmean(torch.abs(out["pred_depth"] -
                                       batch["depth_norm"]))
   if "pred_bev_semantic" in out:
     losses["bev_semantic"] = cross_entropy(
         out["pred_bev_semantic"], batch["bev_semantic_ds"],
-        sample_weight=sw)
+        sample_weight=sw, mesh=mesh)
   if "pred_bb" in out:
     bb = out["pred_bb"]
     tgt = batch["centernet"]
@@ -274,14 +285,15 @@ def _losses(tcfg: TransfuserConfig, out, batch, log_vars=None,
       return torch.gather(flat, 1, cell.expand(-1, -1, flat.shape[-1]))
 
     mask = tgt["mask"] & (sw[:, None] > 0)
-    n_mask = torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
-    losses["wh"] = l1_masked(gather(bb["wh"]), tgt["wh"], mask)
+    n_mask = torch.clamp(mesh_lib.global_sum(
+        mesh, torch.sum(mask.to(torch.float32))), min=1.0)
+    losses["wh"] = l1_masked(gather(bb["wh"]), tgt["wh"], mask, mesh)
     off_t = tgt["center"] - torch.floor(tgt["center"])
-    losses["offset"] = l1_masked(gather(bb["offset"]), off_t, mask)
+    losses["offset"] = l1_masked(gather(bb["offset"]), off_t, mask, mesh)
     losses["yaw_res"] = l1_masked(gather(bb["yaw_res"])[..., 0],
-                                  tgt["yaw_res"], mask)
+                                  tgt["yaw_res"], mask, mesh)
     losses["velocity"] = l1_masked(gather(bb["velocity"])[..., 0],
-                                   tgt["velocity"], mask)
+                                   tgt["velocity"], mask, mesh)
     yc_logits = gather(bb["yaw_class"])
     yc = torch.sum(torch.where(
         mask[..., None], -torch.log_softmax(yc_logits, -1) *
@@ -296,7 +308,7 @@ def _losses(tcfg: TransfuserConfig, out, batch, log_vars=None,
 
   if log_vars is not None:
     # Kendall learned multi-task weighting (train.py:384-456)
-    total = uncertainty_weighted_total(losses, log_vars)
+    total = uncertainty_weighted_total(losses, log_vars, mesh)
   else:
     total = sum(LOSS_WEIGHTS[k] * v for k, v in losses.items())
   aux = {f"loss_{k}": v for k, v in losses.items()}
@@ -306,13 +318,14 @@ def _losses(tcfg: TransfuserConfig, out, batch, log_vars=None,
 
 def transfuser_loss(cfg: GlobalConfig, tcfg: TransfuserConfig,
                     model: LidarCenterNet, params, batch, log_vars=None,
-                    speed_weights=SPEED_WEIGHTS):
+                    speed_weights=SPEED_WEIGHTS, mesh=None):
   """(total, aux) of one batch. params: None to run the module's own
   parameters, or {name: tensor} for ``torch.func.functional_call``;
   log_vars: {loss key: scalar} for Kendall weighting, else fixed
-  LOSS_WEIGHTS."""
+  LOSS_WEIGHTS. mesh: the batch is this rank's slice, and the losses its
+  shares of the global losses."""
   return _losses(tcfg, _forward(model, params, batch), batch,
-                 log_vars=log_vars, speed_weights=speed_weights)
+                 log_vars=log_vars, speed_weights=speed_weights, mesh=mesh)
 
 
 def make_train_batch(cfg: GlobalConfig, tcfg: TransfuserConfig, maps,
@@ -367,7 +380,7 @@ def make_transfuser_train_step(cfg: GlobalConfig, tcfg: TransfuserConfig,
                                bf16: bool = False,
                                speed_weights=SPEED_WEIGHTS,
                                clip_norm: float | None = None,
-                               scheduler=None):
+                               scheduler=None, mesh=None):
   """Returns (train_step, eval_step, wp_valid).
 
   train_step(f_idx, draws=None, generator=None, data=None, wp_w=1.0)
@@ -391,24 +404,56 @@ def make_transfuser_train_step(cfg: GlobalConfig, tcfg: TransfuserConfig,
   wp_valid is the waypoint-label mask of the dataset given here.
   log_vars: Kendall log-variances ({loss key: parameter}, in the
   optimizer) or None for fixed weights. bf16: the forward and backward
-  run in bfloat16 on bfloat16 casts of the float32 parameters."""
+  run in bfloat16 on bfloat16 casts of the float32 parameters.
+
+  mesh: data parallel over its ranks. The data (here and per call) and
+  the draws are the global batch's; each rank renders its slice of the
+  episodes, the step sums the gradients over the ranks before the clip,
+  and the aux losses it returns are the global ones. Without draws, every
+  rank draws the global batch's from `generator` (seed it alike on every
+  rank) in the order one process draws them, and keeps its slice.
+  eval_step raises under a mesh."""
   _, wp_valid = waypoint_labels(frames)
-  default_data = (maps, scene, frames)
   dev = next(model.parameters()).device
   cam_grid = torch.as_tensor(camera_grid, device=dev)
   lid_grid = torch.as_tensor(lidar_grid, device=dev).reshape(-1, 3)
   opt_params = [p for g in optimizer.param_groups for p in g["params"]]
+
+  def shard(data):
+    """(maps, the rank's episodes of scene and frames, global batch)."""
+    maps_, scene_, frames_ = data
+    n = scene_.route.num_valid.shape[0]
+    if mesh is None:
+      return data, n
+    return (maps_, mesh_lib.shard_leading(mesh, scene_, n),
+            mesh_lib.shard_leading(mesh, frames_, n, dim=1)), n
+
+  default_data = shard((maps, scene, frames))
 
   def cast_params():
     if not bf16:
       return None
     return {n: p.to(torch.bfloat16) for n, p in model.named_parameters()}
 
+  def step_draws(k, draws, generator, n):
+    """Micro-batch k's draws: the given ones, or (under a mesh) the global
+    batch's drawn as one process draws them; then the rank's slice."""
+    d = {} if draws is None else draws[k]
+    if mesh is None:
+      return d
+    if draws is None:
+      d = {"lidar": torch.rand((n, lid_grid.shape[0]), generator=generator,
+                               device=dev)}
+      d["speed_drop"] = torch.rand((n,), generator=generator,
+                                   device=dev) < SPEED_DROPOUT
+    return mesh_lib.shard_leading(mesh, d, n)
+
   def batch(f_idx, k, draws, generator, data):
-    maps_, scene_, frames_ = default_data if data is None else data
+    (maps_, scene_, frames_), n = default_data if data is None else \
+        shard(data)
     return make_train_batch(cfg, tcfg, maps_, scene_, frames_,
                             int(f_idx[k]), cam_grid, lid_grid,
-                            {} if draws is None else draws[k],
+                            step_draws(k, draws, generator, n),
                             generator=generator, bf16=bf16)
 
   def train_step(f_idx, draws=None, generator=None, data=None, wp_w=1.0):
@@ -420,10 +465,13 @@ def make_transfuser_train_step(cfg: GlobalConfig, tcfg: TransfuserConfig,
       b["wp_w"] = wp_w
       loss, aux = transfuser_loss(cfg, tcfg, model, cast_params(), b,
                                   log_vars=log_vars,
-                                  speed_weights=speed_weights)
+                                  speed_weights=speed_weights, mesh=mesh)
       (loss / K).backward()
       for name, v in aux.items():
         acc[name] = acc.get(name, 0.0) + v.detach() / K
+    if mesh is not None:
+      mesh_lib.all_reduce_grads(mesh, opt_params)
+      acc = mesh_lib.all_reduce_aux(mesh, acc)
     if clip_norm is not None:
       torch.nn.utils.clip_grad_norm_(opt_params, clip_norm)
     optimizer.step()
@@ -433,6 +481,9 @@ def make_transfuser_train_step(cfg: GlobalConfig, tcfg: TransfuserConfig,
 
   @torch.no_grad()
   def eval_step(f_idx, draws=None, generator=None, data=None, wp_w=1.0):
+    if mesh is not None:
+      raise NotImplementedError("eval_step under a mesh: its mIoU and "
+                                "confusion are not summed over the ranks")
     b = tree_map(lambda *xs: torch.cat(xs),
                  *[batch(f_idx, k, draws, generator, data)
                    for k in range(len(f_idx))])
@@ -484,15 +535,17 @@ def trainable_params(model: LidarCenterNet,
 def make_optimizer(model: LidarCenterNet, lr: float, steps: int,
                    schedule: str | None = "multistep",
                    freeze_backbone: bool = False,
-                   log_vars: dict | None = None):
+                   log_vars: dict | None = None, mesh=None):
   """optax ``adamw`` (b1 0.9, b2 0.999, eps 1e-8, weight decay 0.01 on
   every trainable parameter, the Kendall log-variances included) as
   ``torch.optim.AdamW`` with a LambdaLR schedule (train/schedules.py).
-  Returns (optimizer, scheduler)."""
+  mesh: the AdamW state is sharded over its ranks (ZeRO-1,
+  ``ZeroRedundancyOptimizer``). Returns (optimizer, scheduler)."""
   params = trainable_params(model, freeze_backbone) + \
       list((log_vars or {}).values())
-  opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                          weight_decay=0.01)
+  adamw = dict(lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
+  opt = torch.optim.AdamW(params, **adamw) if mesh is None else \
+      mesh_lib.zero1_optimizer(mesh, params, **adamw)
   sched = torch.optim.lr_scheduler.LambdaLR(opt,
                                             make_schedule(schedule, steps))
   return opt, sched

@@ -2,7 +2,7 @@
 
 - ``trace(dir)``: a ``torch.profiler`` context over the host and the card
   that writes a Chrome trace (``trace.json``) into `dir`.
-- ``Throughput``: an env-steps/s counter, and its share per card.
+- ``Throughput``: an env-steps/s counter, and its rate per card.
 """
 
 from __future__ import annotations
@@ -47,4 +47,7 @@ class Throughput:
     return self.steps / dt if dt > 0 else 0.0
 
   def per_chip(self) -> float:
-    return self.per_sec / max(torch.cuda.device_count(), 1)
+    """The rate of this process' card. A port process drives one card (a
+    data-parallel rank its own), whatever the host holds, so this is the
+    process' rate."""
+    return self.per_sec

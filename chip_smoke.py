@@ -187,7 +187,30 @@ Phases, each of which fails the run if it fails:
   30. PlanT from a reference-layout ``PlanTConfig()`` state dict through
      ``convert_plant``: card against CPU at B=2, then 8 PlanT ticks on the
      committed scene, no kernel launch;
-  31. the output: every tick-state leaf finite, ticks advanced.
+  31. multi-GPU (data parallelism over ``torch.distributed`` ranks): a.
+     ``dryrun_multichip(1)`` over NCCL on the card (a sharded expert
+     ``sim_step``, a data-parallel PlanT step, a data-parallel
+     TransFuser++ step with ZeRO-1 AdamW, the sharded benchmark); then two
+     ranks sharing the one card over gloo (NCCL takes one rank a card):
+     b. the micro TransFuser++ step (B=4, float32, TF32 off, episode 3
+     done at the step's frames, so the shards hold different valid
+     counts) against one process's step on the card: every loss and
+     every all-reduced gradient; c. full-width data-parallel training,
+     ``TransfuserConfig()`` in bf16 on phase 5's frames, 4 micro-batches
+     of 16 episodes split 8 + 8, AdamW (ZeRO-1) with clip 1.0 and the
+     multistep schedule: a warm-up step with every kernel launch held to
+     its plain version, then timed steps with the launch counts set to 0
+     just before and read just after (2 raycast and 1 box-fill launches
+     a micro-batch a rank), ms/step and the all-reduce's ms by CUDA
+     events, each rank's peak memory and optimizer-state bytes; d. the
+     committed scene's 16 episodes split 8 + 8 under the full-width bf16
+     TransFuser++ (seeded weights broadcast from rank 0) through
+     ``rollout_chunked``, 2 raycast launches a tick a rank, every one
+     held to its plain version; then the expert on the same split, whose
+     gathered records must equal one process's run of the same ticks.
+     The ranks return their launch counts to this process. Measured on
+     one card, these are not a multi-card speed;
+  32. the output: every tick-state leaf finite, ticks advanced.
 
 Every phase prints its wall time. The last two lines of standard output
 are the ``kernels`` JSON and ``{"ok": true, "device": ...}``. A kernel's
@@ -279,6 +302,11 @@ MODELS_BATCH = 16                 # the remaining models' timed forward
 ENSEMBLE_MEMBERS = 2              # the converted ensemble: model_0030/31
 ENSEMBLE_TICKS = 32               # its served ticks, every launch checked
 PLANT_CONVERTED_TICKS = 8         # ticks of the converted PlanT
+DP_RANKS = 2                      # ranks sharing the card over gloo
+DP_MICRO_BATCH = 4                # the micro step's episodes, 2 a rank
+DP_TRAIN_STEPS = 2                # timed full-width DP steps
+DP_EVAL_TICKS = 32                # the sharded sensor eval, one chunk
+DP_EXPERT_TICKS, DP_CHUNK = 64, 32  # the sharded expert run
 # the port's JPEG decode of one rendered frame on two devices' renders:
 # the CPU test's bound (tests/test_torch_port_legacy_train.py)
 JPEG_MAX, JPEG_MEAN = 3, 0.5
@@ -3034,6 +3062,361 @@ def converted_plant(cfg, maps, lanes, scene, state0, kernels, card):
   return launches
 
 
+def dp_micro_payload(cfg, maps, lanes, scene, state0, path):
+  """Phase 31b's inputs, saved to `path`: the micro TransFuser++ step at
+  the reduced sensor sizes on the committed scene's first 4 episodes,
+  10 expert frames recorded on the card, with vehicles placed around
+  three egos and episode 3 done at the step's frames. Returns (f_idx, [(sample-weight sum, CenterNet boxes) of each
+  shard] per micro-batch)."""
+  from carla_garage_tpu_torch.models.transfuser import LidarCenterNet
+  from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
+  from carla_garage_tpu_torch.sensors.lidar import full_lidar_grid
+  from carla_garage_tpu_torch.sim.datagen import collect_expert_frames
+  from carla_garage_tpu_torch.train.transfuser_train import make_train_batch
+
+  B, f_idx = DP_MICRO_BATCH, [1, 3]
+  rcfg, tcfg = reduced_sizes(cfg)
+  cam, lid = camera_ray_grid(rcfg, scale=8), full_lidar_grid(rcfg,
+                                                             decimate=16)
+  n_lidar = lid.shape[0] * lid.shape[1]
+  sc = slice_batch(scene, B)
+  _, frames = collect_expert_frames(
+      rcfg, maps, lanes, sc, slice_batch(state0, B), 10,
+      generator=torch.Generator(device="cuda").manual_seed(3))
+  # detection labels: two vehicles placed around the egos of episodes 0
+  # and 1 and one around episode 2's in every frame (the LiDAR gate of a
+  # label needs 8 points of a 16x-decimated sweep), episode 3 done at the
+  # step's frames
+  fw = frames.ego_yaw
+  c, s_ = torch.cos(fw), torch.sin(fw)
+  vp, vy = frames.veh_pos.clone(), frames.veh_yaw.clone()
+  ve, vv = frames.veh_extent.clone(), frames.veh_valid.clone()
+  for v, (dx, dy, dyaw, eps) in enumerate([(9.0, 0.5, 0.0, (0, 1, 2)),
+                                           (6.0, -7.0, 1.4, (0, 1))]):
+    for b in eps:
+      vp[:, b, v] = frames.ego_pos[:, b] + torch.stack(
+          [c[:, b] * dx - s_[:, b] * dy, s_[:, b] * dx + c[:, b] * dy], -1)
+      vy[:, b, v] = fw[:, b] + dyaw
+      ve[:, b, v] = torch.tensor([2.3, 0.95], device=ve.device)
+      vv[:, b, v] = True
+  alive = frames.alive.clone()
+  alive[f_idx, B - 1] = False
+  frames = frames.replace(veh_pos=vp, veh_yaw=vy, veh_extent=ve,
+                          veh_valid=vv, alive=alive)
+  gen = torch.Generator().manual_seed(4)
+  draws = [{"lidar": torch.rand((B, n_lidar), generator=gen),
+            "speed_drop": torch.rand((B,), generator=gen) < 0.15}
+           for _ in f_idx]
+  counts = []
+  for f, dr in zip(f_idx, draws):
+    b = make_train_batch(rcfg, tcfg, maps, sc, frames, f,
+                         torch.as_tensor(cam, device="cuda"),
+                         torch.as_tensor(lid, device="cuda").reshape(-1, 3),
+                         {k: v.cuda() for k, v in dr.items()})
+    sw = b["sample_w"]
+    m = (b["centernet"]["mask"] & (sw[:, None] > 0)).sum(1)
+    counts.append([(float(sw[h:h + 2].sum()), int(m[h:h + 2].sum()))
+                   for h in (0, 2)])
+  torch.manual_seed(1)
+  torch.save(dict(cfg=rcfg, tcfg=tcfg,
+                  state_dict=LidarCenterNet(tcfg).state_dict(),
+                  maps=maps.to("cpu"), scene=sc.to("cpu"),
+                  frames=frames.to("cpu"), camera_grid=cam, lidar_grid=lid,
+                  f_idx=f_idx, draws=draws,
+                  runs=[dict(optimizer="sgd", lr=1.0)]), path)
+  return f_idx, counts
+
+
+def dp_train_rank(mesh, cfg, maps, scene, frames, kernels):
+  """Phase 31c on one rank: full-width bf16 training on its 8 of each
+  micro-batch's 16 episodes, ZeRO-1 AdamW. A warm-up step with every
+  launch checked, then DP_TRAIN_STEPS timed steps."""
+  from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
+                                                        TransfuserConfig)
+  from carla_garage_tpu_torch.parallel import mesh as mesh_lib
+  from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
+  from carla_garage_tpu_torch.sensors.lidar import full_lidar_grid
+  from carla_garage_tpu_torch.train.transfuser_train import (
+      make_optimizer, make_transfuser_train_step)
+
+  K, dev = MICRO_BATCHES, mesh.device
+  tcfg = TransfuserConfig()
+  torch.manual_seed(0)
+  model = LidarCenterNet(tcfg).to(dev)
+  mesh_lib.replicate(mesh, model.state_dict())
+  opt, sched = make_optimizer(model, lr=3e-4, steps=DP_TRAIN_STEPS + 3,
+                              schedule="multistep", mesh=mesh)
+  step, _, wp_valid = make_transfuser_train_step(
+      cfg, tcfg, model, opt, maps, scene, frames, camera_ray_grid(cfg),
+      full_lidar_grid(cfg), bf16=True, clip_norm=1.0, scheduler=sched,
+      mesh=mesh)
+  usable = np.nonzero(wp_valid.cpu().numpy().any(-1))[0]
+  np_rng = np.random.default_rng(0)        # the same frames on every rank
+  gen = torch.Generator(device=dev).manual_seed(2)
+  draw = lambda: np_rng.choice(usable, size=K).tolist()
+  with every_launch_checked() as checked:
+    _, warm = launches_during(kernels, lambda: step(draw(), generator=gen))
+  torch.cuda.synchronize()
+
+  event = lambda: torch.cuda.Event(enable_timing=True)
+  reduces, steps = [], []
+  real = mesh_lib.all_reduce_grads
+
+  def timed_all_reduce(*a, **kw):
+    a0, b0 = event(), event()
+    a0.record()
+    real(*a, **kw)
+    b0.record()
+    reduces.append((a0, b0))
+
+  torch.cuda.reset_peak_memory_stats()
+  mesh_lib.all_reduce_grads = timed_all_reduce
+  try:
+    for k in kernels.values():
+      k.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(DP_TRAIN_STEPS):
+      a0, b0 = event(), event()
+      a0.record()
+      aux = step(draw(), generator=gen)
+      b0.record()
+      steps.append((a0, b0))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+  finally:
+    mesh_lib.all_reduce_grads = real
+  local = mesh_lib.optimizer_state_bytes(opt)
+  return dict(
+      ms_step=[a.elapsed_time(b) for a, b in steps],
+      host_ms_step=1e3 * dt / DP_TRAIN_STEPS,
+      all_reduce_ms=[a.elapsed_time(b) for a, b in reduces],
+      peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+      opt_bytes=local, opt_bytes_all=int(mesh_lib.global_sum(
+          mesh, torch.tensor(local, dtype=torch.int64, device=dev))),
+      grad_bytes=sum(p.grad.numel() * p.grad.element_size()
+                     for p in model.parameters() if p.grad is not None),
+      n_params=sum(p.numel() for p in model.parameters()),
+      launches=launches, warm_launches=warm, checked=dict(checked),
+      aux={k: float(v) for k, v in aux.items()})
+
+
+def dp_eval_rank(mesh, cfg, maps, lanes, scene, state0, kernels):
+  """Phase 31d on one rank: its 8 of the committed scene's 16 episodes
+  under the full-width bf16 TransFuser++ (weights from rank 0) with its
+  slice of the batch's draws, every launch checked; then the expert on
+  the same split, the records gathered."""
+  from carla_garage_tpu_torch.agents.sensor_agent import (
+      make_transfuser_policy, sensor_agent_reset)
+  from carla_garage_tpu_torch.eval.benchmark import (_records,
+                                                     _shard_episode_batch,
+                                                     _sharded_draw_fn)
+  from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
+                                                        TransfuserConfig)
+  from carla_garage_tpu_torch.parallel import mesh as mesh_lib
+  from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
+  from carla_garage_tpu_torch.sensors.lidar import lidar_ray_grid
+  from carla_garage_tpu_torch.sim.episode import rollout, rollout_chunked
+  from carla_garage_tpu_torch.sim.expert import expert_step
+
+  dev, B = mesh.device, state0.tick.shape[0]
+  tcfg = TransfuserConfig()
+  torch.manual_seed(0)
+  model = LidarCenterNet(tcfg).to(dev)
+  mesh_lib.replicate(mesh, model.state_dict())
+  lid_f, lid_r = lidar_ray_grid(cfg, half=0), lidar_ray_grid(cfg, half=1)
+  policy = make_transfuser_policy(model, None, tcfg, camera_ray_grid(cfg),
+                                  lid_f, lid_r, direct=True,
+                                  uncertainty_weight=True, bf16=True)
+  st = state0.replace(agent=sensor_agent_reset(
+      cfg, B, lid_f.shape[0] * lid_f.shape[1], device=dev))
+  draw_fn = _sharded_draw_fn(mesh, policy, scene, st,
+                             torch.Generator(device=dev).manual_seed(31))
+  _, _, sc, st = _shard_episode_batch(mesh, maps, lanes, scene, st)
+  st = rollout(cfg, maps, lanes, sc, st, WARMUP, policy, draw_fn=draw_fn)
+  torch.cuda.synchronize()
+  with every_launch_checked() as checked:
+    t0 = time.perf_counter()
+    final, launches = launches_during(kernels, lambda: rollout_chunked(
+        cfg, maps, lanes, sc, st, DP_EVAL_TICKS, chunk=DP_EVAL_TICKS,
+        policy=policy, draw_fn=draw_fn))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+  n_leaves = finite_leaves(final, "sharded sensor eval")
+  del policy, model
+  torch.cuda.empty_cache()
+
+  draw_e = _sharded_draw_fn(mesh, expert_step, scene, state0,
+                            torch.Generator(device=dev).manual_seed(64))
+  _, _, sc_e, st_e = _shard_episode_batch(mesh, maps, lanes, scene, state0)
+  final_e = rollout_chunked(cfg, maps, lanes, sc_e, st_e, DP_EXPERT_TICKS,
+                            chunk=DP_CHUNK, draw_fn=draw_e)
+  part = mesh_lib.shard_slice(mesh, B)
+  ids = [f"dp_{i}" for i in range(B)][part]
+  recs = mesh_lib.gather_records(mesh, _records(
+      cfg, sc_e, final_e, ids, "SynthTown", first_index=part.start))
+  return dict(ms_tick=1e3 * dt / DP_EVAL_TICKS, launches=launches,
+              checked=dict(checked), n_leaves=n_leaves,
+              brake=float(final.agent.prev_control[:, 2].mean()),
+              records=recs)
+
+
+def dp_card_rank(mesh, d):
+  """Phase 31b-d on one of the ranks sharing the card."""
+  from carla_garage_tpu_torch.ops import bev_fill as ops_bev_fill
+  from carla_garage_tpu_torch.ops import raycast as ops_raycast
+  from carla_garage_tpu_torch.parallel import workers
+  from carla_garage_tpu_torch.scene_io import load_scene
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  kernels = {"raycast_boxes": ops_raycast.raycast_boxes,
+             "fill_boxes_bev": ops_bev_fill.fill_boxes}
+  out = {"micro": workers.transfuser_step_rank(mesh, f"{d}/micro.pt")[0]}
+  p = torch.load(f"{d}/full.pt", weights_only=False)
+  maps, lanes, scene, state0 = load_scene(device=mesh.device)
+  out["train"] = dp_train_rank(mesh, p["cfg"], maps, scene,
+                               p["frames"].to(mesh.device), kernels)
+  out["eval"] = dp_eval_rank(mesh, p["cfg"], maps, lanes, scene, state0,
+                             kernels)
+  return out
+
+
+def multi_gpu(cfg, maps, lanes, scene, state0, frames, kernels, card):
+  """Phase 31. Returns ({path: {kernel: launches summed over the ranks}},
+  the numbers it measured)."""
+  from carla_garage_tpu_torch.eval.benchmark import _records
+  from carla_garage_tpu_torch.parallel import launch, workers
+  from carla_garage_tpu_torch.parallel.dryrun import dryrun_multichip
+  from carla_garage_tpu_torch.sim.episode import rollout_chunked
+  from carla_garage_tpu_torch.structs import tree_map
+
+  t0 = time.perf_counter()
+  dry = dryrun_multichip(1)[0]
+  assert dry["opt_bytes_per_rank"] == [dry["opt_bytes_replicated"]], dry
+  log(f"  a. dryrun_multichip(1) over NCCL in {time.perf_counter() - t0:.1f}"
+      f" s: launches {dry['launches']}, DS "
+      f"{dry['global_record']['driving_score']:.3f}")
+
+  with tempfile.TemporaryDirectory() as d:
+    f_idx, counts = dp_micro_payload(cfg, maps, lanes, scene, state0,
+                                     f"{d}/micro.pt")
+    torch.save(dict(cfg=cfg, frames=frames.to("cpu")), f"{d}/full.pt")
+    t0 = time.perf_counter()
+    ranks = launch.spawn(dp_card_rank, DP_RANKS, "gloo", "cuda", d,
+                         tmpdir=d)
+    spawn_s = time.perf_counter() - t0
+    one = tree_map(lambda x: x.cpu(), workers.transfuser_step_rank(
+        None, f"{d}/micro.pt", device="cuda")[0])
+
+  # b. the micro step, two ranks against one process on the card
+  log(f"  two ranks over gloo on the card in {spawn_s:.1f} s")
+  for f, c in zip(f_idx, counts):
+    log(f"  b. frame {f}: (sample-weight sum, CenterNet boxes) of the two "
+        f"shards {c}")
+  assert all(a[0] != b[0] for a, b in counts), counts
+  assert any(a[1] != b[1] for a, b in counts), counts
+  r0, r1 = ranks[0]["micro"], ranks[1]["micro"]
+  rel = {k: float((r0["aux"][k] - v).abs() / v.abs().clamp(min=1e-6))
+         for k, v in one["aux"].items()}
+  g0, g_one = r0["grads"], one["grads"]
+  assert set(g0) == set(g_one) == set(r1["grads"])
+  norm = sum(float((g.double() ** 2).sum()) for g in g_one.values()) ** 0.5
+  g_err = sum(float(((g0[n].double() - g.double()) ** 2).sum())
+              for n, g in g_one.items()) ** 0.5 / norm
+  log(f"  b. 2 ranks vs one process, aux relative differences "
+      f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} }; gradients "
+      f"{g_err:.3g} of the norm")
+  for k in one["aux"]:
+    assert torch.equal(r0["aux"][k], r1["aux"][k]), k
+  assert all(torch.equal(g0[n], r1["grads"][n]) for n in g0)
+  # float32, TF32 off; cuDNN picks its algorithms by batch size (4 on one
+  # process, 2 a rank)
+  worst_aux = max(rel.values())
+  assert worst_aux < 1e-4, rel
+  assert g_err < 1e-4, g_err
+  log(f"  b. micro step, 2 ranks vs one process on the card (float32, TF32 "
+      f"off): loss {float(r0['aux']['loss']):.6f} vs "
+      f"{float(one['aux']['loss']):.6f}, aux max relative difference "
+      f"{worst_aux:.3g} (bar 1e-4); all-reduced gradients {len(g0)} tensors, "
+      f"error {g_err:.3g} of the norm (bar 1e-4), equal on both ranks")
+
+  # c. full-width DP training
+  tr = [r["train"] for r in ranks]
+  K = MICRO_BATCHES
+  want = {"raycast_boxes": 2 * K * DP_TRAIN_STEPS,
+          "fill_boxes_bev": K * DP_TRAIN_STEPS}
+  for t in tr:
+    assert t["launches"] == want, t["launches"]
+    assert t["checked"]["raycast"] == 2 * K and \
+        t["checked"]["fill"] == K and t["checked"]["differing"] == 0, \
+        t["checked"]
+    assert all(np.isfinite(v) for v in t["aux"].values()), t["aux"]
+  assert tr[0]["aux"] == tr[1]["aux"]
+  ms = statistics.median(tr[0]["ms_step"])
+  ar = statistics.median(tr[0]["all_reduce_ms"])
+  repl = tr[0]["opt_bytes_all"]
+  per_rank = [t["opt_bytes"] for t in tr]
+  log(f"  c. full-width DP training, {DP_RANKS} ranks x {K} micro-batches "
+      f"of {frames.ego_yaw.shape[1] // DP_RANKS}, bf16, ZeRO-1 AdamW: "
+      f"{ms:.1f} ms/step on rank 0 by CUDA events ({tr[0]['ms_step']}; host "
+      f"{tr[0]['host_ms_step']:.1f} ms/step), all-reduce of "
+      f"{tr[0]['grad_bytes'] / 1e6:.1f} MB of float32 gradients "
+      f"({tr[0]['n_params'] / 1e6:.2f}M parameters) {ar:.1f} ms "
+      f"({100 * ar / ms:.1f}% of the step; {tr[0]['all_reduce_ms']}), peak "
+      f"memory {[round(t['peak_gb'], 2) for t in tr]} GB a rank; optimizer "
+      f"state {[round(b / 1e6, 1) for b in per_rank]} MB a rank against "
+      f"{repl / 1e6:.1f} MB replicated ({repl / max(per_rank):.2f}x); "
+      f"every launch of the warm-up step bit-equal ({tr[0]['checked']}); "
+      f"launches a rank in the timed steps {tr[0]['launches']}  ({card}; "
+      f"two ranks share this one card, so this is not a multi-card speed)")
+  log("  c. aux of the last step: " + ", ".join(
+      f"{k[5:] if k.startswith('loss_') else k} {v:.4f}"
+      for k, v in tr[0]["aux"].items()))
+
+  # d. the sharded eval, then the expert against one process
+  ev = [r["eval"] for r in ranks]
+  for e in ev:
+    assert e["launches"] == {"raycast_boxes": 2 * DP_EVAL_TICKS,
+                             "fill_boxes_bev": 0}, e["launches"]
+    assert e["checked"]["raycast"] == 2 * DP_EVAL_TICKS and \
+        e["checked"]["differing"] == 0, e["checked"]
+  B = state0.tick.shape[0]
+  final = rollout_chunked(cfg, maps, lanes, scene, state0, DP_EXPERT_TICKS,
+                          chunk=DP_CHUNK,
+                          generator=torch.Generator(
+                              device="cuda").manual_seed(64))
+  want_recs = _records(cfg, scene, final, [f"dp_{i}" for i in range(B)],
+                       "SynthTown")
+  got = ev[0]["records"]
+  assert got == ev[1]["records"]
+  assert [r["route_id"] for r in got] == [r["route_id"] for r in want_recs]
+  worst = 0.0
+  for a, b in zip(got, want_recs):
+    for k in ("route_id", "town", "index", "status", "infractions",
+              "events", "meta"):
+      assert a[k] == b[k], (k, a[k], b[k])
+    for k, v in b["scores"].items():
+      worst = max(worst, abs(a["scores"][k] - v))
+  assert worst <= 1e-4, worst
+  log(f"  d. sharded sensor eval, {B} episodes split {B // DP_RANKS} + "
+      f"{B // DP_RANKS}, full-width bf16: {ev[0]['ms_tick']:.2f} / "
+      f"{ev[1]['ms_tick']:.2f} ms/tick on ranks 0 / 1 over "
+      f"{DP_EVAL_TICKS} ticks with every launch checked "
+      f"({ev[0]['checked']['raycast']} + {ev[1]['checked']['raycast']} "
+      f"bit-equal); {ev[0]['n_leaves']} state leaves finite; brake share "
+      f"{ev[0]['brake']:.3f} / {ev[1]['brake']:.3f}  ({card})")
+  log(f"  d. expert, {DP_EXPERT_TICKS} ticks on the same split: the "
+      f"gathered {len(got)} records equal one process's (ids, statuses, "
+      f"infractions, events, meta; scores within {worst:.3g}), DS "
+      f"{sum(r['scores']['score_composed'] for r in got) / len(got):.3f}")
+  total = lambda runs: {n: sum(r["launches"][n] for r in runs)
+                        for n in kernels}
+  numbers = dict(ms_step=ms, all_reduce_ms=ar, opt_bytes=per_rank,
+                 opt_bytes_replicated=repl)
+  return {"dp_train": total(tr), "dp_eval": total(ev)}, numbers
+
+
 def main():
   ap = argparse.ArgumentParser()
   ap.add_argument("--profile", metavar="PATH",
@@ -3270,6 +3653,13 @@ def main():
   plant_conv_launches = converted_plant(cfg, maps, lanes, scene, state0,
                                         kernels, card)
 
+  clock.start("multi-GPU: dryrun_multichip(1) over NCCL; two ranks over "
+              "gloo sharing the card: the micro step against one "
+              "process, full-width DP training with ZeRO-1, the sharded "
+              "sensor eval and expert")
+  dp_launches, _ = multi_gpu(cfg, maps, lanes, scene, state0, frames,
+                             kernels, card)
+
   clock.start("output")
   n_leaves = 0
   for path, x in tree_items(state):
@@ -3306,7 +3696,9 @@ def main():
                     "disk_train": disk_train_launches[name],
                     "models_extra": models_launches[name],
                     "converted_ensemble": ensemble_launches[name],
-                    "converted_plant": plant_conv_launches[name]}
+                    "converted_plant": plant_conv_launches[name],
+                    "dp_train": dp_launches["dp_train"][name],
+                    "dp_eval": dp_launches["dp_eval"][name]}
              for name in kernels}
   log(f"  launches: {by_path} (tick: {TICKS} ticks, train_step: "
       f"{TRAIN_STEPS} steps, eval: {eval_ticks} ticks, dagger: "
@@ -3320,7 +3712,9 @@ def main():
       f"disk_export: {EXPORT_FRAMES} frames, disk_train: {1 + DISK_STEPS} "
       f"steps, models_extra: 5 forwards, converted_ensemble: "
       f"{ensemble_ticks} ticks, converted_plant: {PLANT_CONVERTED_TICKS} "
-      f"ticks, entry_*: whole runs)")
+      f"ticks, dp_train: {DP_TRAIN_STEPS} steps on each of {DP_RANKS} "
+      f"ranks, dp_eval: {DP_EVAL_TICKS} ticks on each of {DP_RANKS} ranks, "
+      f"entry_*: whole runs)")
   (c_ms, c_plain, c_cost), (s_ms, s_plain, s_cost), (f_ms, f_plain,
                                                      f_cost) = (
       export_times[k] for k in ("camera", "sweep", "fill"))

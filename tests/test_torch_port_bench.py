@@ -127,8 +127,8 @@ def test_throughput_and_trace(tmp_path):
   tp.add(100)
   tp.add(28)
   assert tp.steps == 128 and 0 < tp.per_sec <= 32.0
-  assert tp.per_chip() == pytest.approx(
-      tp.per_sec / max(torch.cuda.device_count(), 1), rel=1e-2)
+  # one process drives one card, however many the host holds
+  assert tp.per_chip() == pytest.approx(tp.per_sec, rel=1e-2)
   with trace(str(tmp_path / "t")) as prof:
     torch.ones(8).add_(1)
   assert prof is not None

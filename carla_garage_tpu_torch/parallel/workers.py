@@ -1,9 +1,9 @@
 """Rank functions for ``launch.spawn``: one data-parallel train step or
 sharded rollout per call, from inputs saved with ``torch.save`` to a file
 (the ranks read the same file). Each also runs as one process with
-``mesh=None``, the reference a data-parallel run is held against. They
-live in the package because a spawned rank imports its function's module
-afresh.
+``mesh=None``, the reference a data-parallel run is held against: on the
+card, unless `device` names the CPU. They live in the package because a
+spawned rank imports its function's module afresh.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ def _named_grads(named) -> dict:
           if p.grad is not None}
 
 
-def transfuser_step_rank(mesh, path, device="cpu") -> list:
+def transfuser_step_rank(mesh, path, device="cuda") -> list:
   """Float32 TransFuser++ train steps from one file. It holds cfg, tcfg,
   state_dict, maps, scene, frames (the global batch), camera_grid,
   lidar_grid, f_idx, draws (one dict per micro-batch for the global
@@ -83,7 +83,30 @@ def transfuser_step_rank(mesh, path, device="cpu") -> list:
   return out
 
 
-def plant_step_rank(mesh, path, device="cpu") -> list:
+def transfuser_eval_rank(mesh, path, device="cuda") -> dict:
+  """The float32 TransFuser++ ``eval_step`` on a file that
+  ``transfuser_step_rank`` takes (its runs are not used): f_idx rendered
+  with the given draws, each rank its slice of the episodes. Returns the
+  eval aux (losses, mIoU, confusion, checkpoint angle error) of the
+  global batch."""
+  from carla_garage_tpu_torch.models.transfuser import LidarCenterNet
+  from carla_garage_tpu_torch.train.transfuser_train import \
+      make_transfuser_train_step
+  dev = _device(mesh, device)
+  p = _load(path, dev)
+  maps, scene, frames = tree_map(lambda x: x.to(dev),
+                                 (p["maps"], p["scene"], p["frames"]))
+  model = LidarCenterNet(p["tcfg"])
+  model.load_state_dict(p["state_dict"])
+  model = model.to(dev)
+  _, eval_step, _ = make_transfuser_train_step(
+      p["cfg"], p["tcfg"], model, torch.optim.SGD(model.parameters(), lr=0.0),
+      maps, scene, frames, p["camera_grid"], p["lidar_grid"], mesh=mesh)
+  return eval_step(p["f_idx"],
+                   draws=tree_map(lambda x: x.to(dev), p["draws"]))
+
+
+def plant_step_rank(mesh, path, device="cuda") -> list:
   """PlanT train steps from one file. It holds pcfg, state_dict, batch (the
   global sample batch), speed_weights and runs: one dict per step from the
   same weights, with lr and optionally log_vars. Returns per run the aux
@@ -115,7 +138,7 @@ def plant_step_rank(mesh, path, device="cpu") -> list:
   return out
 
 
-def rollout_records_rank(mesh, path, device="cpu") -> list:
+def rollout_records_rank(mesh, path, device="cuda") -> list:
   """The expert on a synthetic episode batch, sharded over the ranks,
   through ``rollout_chunked``; the gathered records (route ids m_0,
   m_1, ...). The file holds cfg, build (``make_synthetic_batch``'s
@@ -151,7 +174,7 @@ def rollout_records_rank(mesh, path, device="cpu") -> list:
 
 
 def benchmark_rank(mesh, kwargs: dict, chunk: int | None = None,
-                   device="cpu"):
+                   device="cuda"):
   """``run_carla_benchmark(**kwargs)`` on this rank's slice of the
   episodes; (records, global record). chunk replaces the runner's ticks a
   chunk (recorded or not) in this process."""

@@ -31,3 +31,8 @@ def bicycle_step(pos, yaw, speed, steer, throttle, brake, cfg: SimConfig,
   new_speed = torch.clamp(speed + accel * dt, min=0.0)
   return new_pos, new_yaw, new_speed
 
+
+def forward_speed(vel_xy: torch.Tensor, yaw: torch.Tensor) -> torch.Tensor:
+  """A velocity vector's projection onto the heading
+  (autopilot._get_forward_speed)."""
+  return vel_xy[..., 0] * torch.cos(yaw) + vel_xy[..., 1] * torch.sin(yaw)

@@ -13,6 +13,13 @@ def normalize_angle(a: torch.Tensor) -> torch.Tensor:
   return torch.remainder(a + math.pi, 2.0 * math.pi) - math.pi
 
 
+def rot2d(yaw: torch.Tensor) -> torch.Tensor:
+  """Rotation matrices [..,2,2] for yaw [..]."""
+  c, s = torch.cos(yaw), torch.sin(yaw)
+  return torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)],
+                     -2)
+
+
 def world_to_ego(points: torch.Tensor, ego_pos: torch.Tensor,
                  ego_yaw: torch.Tensor) -> torch.Tensor:
   """World xy -> ego frame (x forward, y left). points [..,2]; broadcasts."""

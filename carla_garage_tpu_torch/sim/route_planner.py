@@ -25,6 +25,13 @@ class PlannerParams:
   window: int = 64
 
 
+def planner_reset(batch_shape=(), device="cuda") -> PlannerState:
+  """Pointers at the first route point, none at the route's end."""
+  return PlannerState(
+      idx=torch.zeros(batch_shape, dtype=torch.int32, device=device),
+      is_last=torch.zeros(batch_shape, dtype=torch.bool, device=device))
+
+
 def planner_step(state: PlannerState, points: torch.Tensor,
                  seg_len: torch.Tensor, num_valid: torch.Tensor,
                  pos: torch.Tensor, p: PlannerParams) -> PlannerState:

@@ -210,16 +210,20 @@ def centernet_targets(cfg: GlobalConfig, tcfg: TransfuserConfig, batch,
 
 
 def mean_iou(pred_cls: torch.Tensor, label: torch.Tensor,
-             num_classes: int) -> torch.Tensor:
+             num_classes: int, mesh=None) -> torch.Tensor:
   """Mean intersection-over-union over the classes present in the labels
-  (train.py:822-843 semantic / BEV mIoU)."""
-  ious, present = [], []
+  (train.py:822-843 semantic / BEV mIoU). mesh: the inputs are this
+  rank's slice; each class's intersection, union and label counts are
+  summed over the ranks, so every rank returns the global batch's mIoU."""
+  counts = []
   for c in range(num_classes):
     p = pred_cls == c
     lab = label == c
-    ious.append(torch.sum(p & lab) / torch.clamp(torch.sum(p | lab), min=1))
-    present.append(torch.any(lab))
-  ious, present = torch.stack(ious), torch.stack(present)
+    counts.append(torch.stack([torch.sum(p & lab), torch.sum(p | lab),
+                               torch.sum(lab)]))
+  inter, union, n_lab = mesh_lib.global_sum(mesh, torch.stack(counts)).T
+  ious = inter / torch.clamp(union, min=1)
+  present = n_lab > 0
   return torch.sum(torch.where(present, ious, 0.0)) / \
       torch.clamp(torch.sum(present), min=1)
 
@@ -412,7 +416,9 @@ def make_transfuser_train_step(cfg: GlobalConfig, tcfg: TransfuserConfig,
   and the aux losses it returns are the global ones. Without draws, every
   rank draws the global batch's from `generator` (seed it alike on every
   rank) in the order one process draws them, and keeps its slice.
-  eval_step raises under a mesh."""
+  eval_step likewise returns the global batch's losses, mIoU, confusion
+  and checkpoint angle error on every rank: its counts are summed over
+  the ranks before any division."""
   _, wp_valid = waypoint_labels(frames)
   dev = next(model.parameters()).device
   cam_grid = torch.as_tensor(camera_grid, device=dev)
@@ -481,38 +487,38 @@ def make_transfuser_train_step(cfg: GlobalConfig, tcfg: TransfuserConfig,
 
   @torch.no_grad()
   def eval_step(f_idx, draws=None, generator=None, data=None, wp_w=1.0):
-    if mesh is not None:
-      raise NotImplementedError("eval_step under a mesh: its mIoU and "
-                                "confusion are not summed over the ranks")
     b = tree_map(lambda *xs: torch.cat(xs),
                  *[batch(f_idx, k, draws, generator, data)
                    for k in range(len(f_idx))])
     b["wp_w"] = wp_w
     out = _forward(model, cast_params(), b)
-    _, aux = _losses(tcfg, out, b, speed_weights=speed_weights)
+    _, aux = _losses(tcfg, out, b, speed_weights=speed_weights, mesh=mesh)
+    aux = mesh_lib.all_reduce_aux(mesh, aux)
     if "pred_semantic" in out:
       aux["miou_semantic"] = mean_iou(
           torch.argmax(out["pred_semantic"], -1), b["semantic"],
-          cfg.sensor.num_semantic_classes)
+          cfg.sensor.num_semantic_classes, mesh)
     if "pred_bev_semantic" in out:
       aux["miou_bev_semantic"] = mean_iou(
           torch.argmax(out["pred_bev_semantic"], -1),
-          b["bev_semantic_ds"], cfg.sensor.num_bev_semantic_classes)
+          b["bev_semantic_ds"], cfg.sensor.num_bev_semantic_classes, mesh)
     # open-loop diagnosis: the speed-class confusion (brake recall is the
     # missed-hazard knob) and the direct controller's steering input, the
     # angle of checkpoint 2, as an error against the label
     sw = b["sample_w"] > 0
     pred_cls = torch.argmax(out["pred_target_speed"], -1)
     lab = b["speed_label"].long()
-    aux["confusion"] = torch.zeros((4, 4), dtype=torch.int32,
-                                   device=dev).index_put_(
-        (lab, pred_cls), sw.to(torch.int32), accumulate=True)
+    aux["confusion"] = mesh_lib.global_sum(mesh, torch.zeros(
+        (4, 4), dtype=torch.int32, device=dev).index_put_(
+            (lab, pred_cls), sw.to(torch.int32), accumulate=True))
     ang = lambda a: torch.rad2deg(torch.atan2(a[..., 1], a[..., 0]))
     d_ang = torch.abs(geo.normalize_angle(torch.deg2rad(
         ang(out["pred_checkpoint"][:, 2]) - ang(b["ckpt_label"][:, 2]))))
-    aux["ckpt_angle_mae_deg"] = torch.rad2deg(
-        torch.sum(torch.where(sw, d_ang, 0.0)) /
-        torch.clamp(torch.sum(sw), min=1))
+    err_sum = mesh_lib.global_sum(mesh, torch.sum(torch.where(sw, d_ang,
+                                                              0.0)))
+    n_sw = mesh_lib.global_sum(mesh, torch.sum(sw))
+    aux["ckpt_angle_mae_deg"] = torch.rad2deg(err_sum /
+                                              torch.clamp(n_sw, min=1))
     return aux
 
   return train_step, eval_step, wp_valid

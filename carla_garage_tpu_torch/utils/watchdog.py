@@ -10,6 +10,7 @@ build), so the watchdog wraps host-blocking calls.
 from __future__ import annotations
 
 import _thread
+import contextlib
 import threading
 
 
@@ -19,9 +20,14 @@ class Watchdog:
   def __init__(self, timeout_s: float):
     self.timeout_s = timeout_s
     self._timer = None
+    self.tripped = False
+
+  def _trip(self):
+    self.tripped = True
+    _thread.interrupt_main()
 
   def start(self):
-    self._timer = threading.Timer(self.timeout_s, _thread.interrupt_main)
+    self._timer = threading.Timer(self.timeout_s, self._trip)
     self._timer.daemon = True
     self._timer.start()
 
@@ -34,3 +40,14 @@ class Watchdog:
     if self._timer is not None:
       self._timer.cancel()
       self._timer = None
+
+
+@contextlib.contextmanager
+def watchdog(timeout_s: float):
+  """A Watchdog armed over the block and stopped when it exits."""
+  w = Watchdog(timeout_s)
+  w.start()
+  try:
+    yield w
+  finally:
+    w.stop()

@@ -49,7 +49,7 @@ Phases, each of which fails the run if it fails:
      training script's ``closed_loop_eval``): the port builds a 16-route
      scenario scene (100 NPCs, 2 walkers), the full-width bf16 TransFuser++
      with seeded random weights drives it through ``rollout_chunked``
-     (64 ticks in one chunk; phase 23 drives 1,024), then
+     (64 ticks in one chunk; phase 23 drives 512), then
      ``compute_scores`` -> records ->
      ``aggregate``, written with ``write_endpoint`` and ``write_csv`` and
      read back; ms/tick (timed with torch's sync debug mode off), launch
@@ -124,14 +124,14 @@ Phases, each of which fails the run if it fails:
      ticks on the card and on the CPU from the same steer-noise and
      control-loss draws, every state leaf;
   22. ``run_benchmarks --honest --single-batch --towns Town01 Town02
-     --max-ticks 1024``: the expert drives the 12 routes (100 NPCs,
+     --max-ticks 512``: the expert drives the 12 routes (100 NPCs,
      scenarios on) as one mixed-town batch through ``rollout_chunked``;
      the endpoint JSON and CSV read back, every state leaf finite, no
      kernel launch, one host sync a chunk and none a tick; ms/tick,
      env-steps/s, DS;
   23. ``run_benchmarks --agent transfuser --checkpoint <TransfuserConfig()
      with seeded random weights, saved by the port> --honest --reps 2
-     --towns Town01 --max-ticks 1024``: 16 episodes at full width, bf16;
+     --towns Town01 --max-ticks 512``: 16 episodes at full width, bf16;
      2 raycast launches a tick, every launch held against the plain
      version on the card as the run goes (its ms/tick includes that
      work, whose host seconds it prints) and the first of each shape
@@ -210,7 +210,19 @@ Phases, each of which fails the run if it fails:
      gathered records must equal one process's run of the same ticks.
      The ranks return their launch counts to this process. Measured on
      one card, these are not a multi-card speed;
-  32. the output: every tick-state leaf finite, ticks advanced.
+  32. the remaining entry points: a. ``bench_forward.main`` at full spec
+     (TransfuserConfig(), B=16, bf16, 30 timed calls) with ``--norm gn``
+     and ``--norm bn_affine``, each JSON line printed, params_M 120.3, no
+     kernel launch, ms/step against the forward's operation count at the
+     bf16 peak; b. one ``--profile`` run with gn: its 15 slowest device
+     kernels, device time by class and the card's busy share; c. the
+     micro forward (``--micro --no-bf16 --batch 2``) on the card against
+     the CPU from the same seed and weights, within 1e-4 relative (TF32
+     off); d. ``merge_seed_runs`` on the committed
+     ``results/{longest6,lav}_plant_r5_honest_seed{0,1,2}.json``, whose
+     ``_checkpoint`` and ``values`` must equal the committed merged files
+     within 1e-12;
+  33. the output: every tick-state leaf finite, ticks advanced.
 
 Every phase prints its wall time. The last two lines of standard output
 are the ``kernels`` JSON and ``{"ok": true, "device": ...}``. A kernel's
@@ -222,6 +234,7 @@ and prints no result.
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import pathlib
@@ -245,7 +258,7 @@ TRAIN_STEPS = 3                   # timed full-width training steps
 SCENARIO_TICKS = 60               # expert ticks of the scenario reference
 EVAL_TICKS = 64                   # closed-loop eval: the script runs 6,000
 EVAL_CHUNK = 64                   # ticks in chunks of 512; phase 23 runs
-                                  # 1,024 at full width
+                                  # 512 at full width
 SYNC_CHECK_CHUNKS = 2             # the eval's host-sync check: 2 chunks
 SYNC_CHECK_CHUNK = 8              # of 8 ticks
 DAGGER_FRAMES = 10                # the DAgger collector's frames
@@ -288,7 +301,9 @@ TRANSFUSER_ENTRY_ARGV = [
 # 8 and 4 Longest6 routes
 IMPORTED_TOWNS = {"Town01": dict(n_x=7, n_y=7, block=115.0), "Town02": {}}
 IMPORTED_ROUTES = {"Town01": 8, "Town02": 4}
-CARLA_TICKS = 1024                # run_benchmarks --max-ticks: one chunk
+CARLA_TICKS = 512                 # run_benchmarks --max-ticks, run as one
+                                  # chunk (the runner's chunk is 1,024;
+                                  # cut in depth to keep the script short)
 UNCHECKED_TICKS = 128             # the sensor benchmark's window timed
                                   # without the launch check
 EXPORT_FRAMES = 16                # phase 5's frames written to disk: the
@@ -307,6 +322,12 @@ DP_MICRO_BATCH = 4                # the micro step's episodes, 2 a rank
 DP_TRAIN_STEPS = 2                # timed full-width DP steps
 DP_EVAL_TICKS = 32                # the sharded sensor eval, one chunk
 DP_EXPERT_TICKS, DP_CHUNK = 64, 32  # the sharded expert run
+FWD_BATCH = 16                    # bench_forward: its default batch,
+FWD_ITERS = 30                    # its default timed calls, and the
+FWD_PROFILE_ITERS = 5             # profiled run's timed calls
+H100_BF16_FLOP_PER_S = 989e12     # dense bf16 on the tensor cores, H100
+                                  # SXM data sheet
+MERGED_RUNS = ("longest6", "lav")  # committed results/*_plant_r5_honest*
 # the port's JPEG decode of one rendered frame on two devices' renders:
 # the CPU test's bound (tests/test_torch_port_legacy_train.py)
 JPEG_MAX, JPEG_MEAN = 3, 0.5
@@ -2442,17 +2463,17 @@ def codecs(cfg, maps, scene, state):
         f"{enc_ms:.2f} ms, decode {dec_ms:.2f} ms")
 
 
-def json_close(got, want, where):
+def json_close(got, want, where, atol=1e-5, rtol=1e-5):
   if isinstance(want, dict):
     assert set(got) == set(want), where
     for k in want:
-      json_close(got[k], want[k], f"{where}/{k}")
+      json_close(got[k], want[k], f"{where}/{k}", atol, rtol)
   elif isinstance(want, list):
     assert len(got) == len(want), where
     for i, (g, w) in enumerate(zip(got, want)):
-      json_close(g, w, f"{where}[{i}]")
+      json_close(g, w, f"{where}[{i}]", atol, rtol)
   elif isinstance(want, float):
-    assert abs(got - want) <= 1e-5 + 1e-5 * abs(want), (where, got, want)
+    assert abs(got - want) <= atol + rtol * abs(want), (where, got, want)
   else:
     assert got == want, (where, got, want)
 
@@ -3417,6 +3438,102 @@ def multi_gpu(cfg, maps, lanes, scene, state0, frames, kernels, card):
   return {"dp_train": total(tr), "dp_eval": total(ev)}, numbers
 
 
+def bench_forward_main(argv):
+  """``bench_forward.main(argv)`` on the card: its printed lines logged,
+  its JSON record returned."""
+  from carla_garage_tpu_torch.scripts import bench_forward
+  buf = io.StringIO()
+  with contextlib.redirect_stdout(buf):
+    assert bench_forward.main(argv) == 0
+  lines = buf.getvalue().strip().splitlines()
+  log("\n".join(f"  {ln}" for ln in lines))
+  return json.loads(lines[-1]), lines[:-1]
+
+
+def remaining_entry_points(kernels, card):
+  """Phase 32: ``bench_forward`` at full spec with both norms, profiled,
+  and card against CPU at micro size; ``merge_seed_runs`` on the
+  committed seed files. Returns ({kernel: launches} of the two full-spec
+  runs, the numbers it measured)."""
+  from carla_garage_tpu_torch.models.transfuser import TransfuserConfig
+  from carla_garage_tpu_torch.scripts import bench_forward, merge_seed_runs
+
+  # a. both norms at the default operating point, B=16 bf16
+  argv = ["--batch", str(FWD_BATCH), "--iters", str(FWD_ITERS)]
+  recs, launches = {}, {n: 0 for n in kernels}
+  for norm in ("gn", "bn_affine"):
+    t0 = time.perf_counter()
+    recs[norm], got = launches_during(
+        kernels, lambda: bench_forward_main(argv + ["--norm", norm])[0])
+    launches = {n: launches[n] + got[n] for n in kernels}
+    log(f"  a. {norm} run in {time.perf_counter() - t0:.1f} s")
+  flops = bench_forward.forward_flops(TransfuserConfig(), "gn", FWD_BATCH)
+  bound_ms = 1e3 * flops / H100_BF16_FLOP_PER_S
+  for norm, r in recs.items():
+    assert r["params_M"] == 120.3 and r["bf16"] and \
+        r["batch"] == FWD_BATCH, r
+    assert np.isfinite(r["ms_per_step"]) and r["ms_per_step"] > 0, r
+    log(f"  a. {norm}: {r['ms_per_step']} ms/step, {r['frames_per_s']} "
+        f"frames/s, first call {r['compile_s']} s; {flops / 1e9:.1f} GFLOP "
+        f"a forward (FlopCounterMode), bound {bound_ms:.3f} ms at the bf16 "
+        f"peak, {flops / r['ms_per_step'] / 1e9:.1f} TFLOP/s achieved, "
+        f"{100 * bound_ms / r['ms_per_step']:.2f}% of the peak  ({card})")
+  gn_ms, bn_ms = recs["gn"]["ms_per_step"], recs["bn_affine"]["ms_per_step"]
+  log(f"  a. GroupNorm's cost against the folded BatchNorm: "
+      f"{gn_ms - bn_ms:.2f} ms of {gn_ms} ms "
+      f"({100 * (gn_ms - bn_ms) / gn_ms:.1f}%)")
+  assert launches == {n: 0 for n in kernels}, launches
+
+  # b. one profiled run with gn: the top device kernels and the busy share
+  t0 = time.perf_counter()
+  with tempfile.TemporaryDirectory() as d:
+    args = bench_forward.parse_args(
+        argv[:2] + ["--iters", str(FWD_PROFILE_ITERS), "--profile",
+                    f"{d}/trace"])
+    rec, extra = bench_forward.run(args, "cuda")
+    prof = extra["profile"]
+    assert os.path.getsize(f"{d}/trace/trace.json") > 0
+  assert prof["top"] and 0 < prof["busy"] <= 1.0, prof
+  dev_ms = prof["total_ms"] / bench_forward.PROFILE_CALLS
+  log(f"  b. profiled gn run: {json.dumps(rec)}; device busy "
+      f"{100 * prof['busy']:.1f}% of {prof['wall_ms']:.1f} ms over "
+      f"{bench_forward.PROFILE_CALLS} profiled calls; {dev_ms:.2f} ms of "
+      f"device time and "
+      f"{prof['launches'] / bench_forward.PROFILE_CALLS:.0f} kernels, "
+      f"memsets and copies a forward, {100 * dev_ms / gn_ms:.1f}% of a.'s "
+      f"unprofiled {gn_ms} ms/step; kernel time by class "
+      f"{ {k: round(v, 3) for k, v in prof['by_class'].items()} } ms  "
+      f"({card}); {time.perf_counter() - t0:.1f} s")
+
+  # c. card against CPU at micro size, float32 (TF32 off)
+  micro = bench_forward.parse_args(["--micro", "--no-bf16", "--batch", "2",
+                                    "--iters", "1"])
+  on_card = bench_forward.run(micro, "cuda")[1]["out"]
+  on_cpu = bench_forward.run(micro, "cpu")[1]["out"]
+  rel = abs(on_card - on_cpu) / abs(on_cpu)
+  assert np.isfinite(on_card) and rel <= 1e-4, (on_card, on_cpu)
+  log(f"  c. micro forward's output sum, card {on_card!r} vs CPU "
+      f"{on_cpu!r}: {rel:.3g} relative (bar 1e-4)")
+
+  # d. merge_seed_runs against the committed merged files
+  with tempfile.TemporaryDirectory() as d:
+    for bench in MERGED_RUNS:
+      stem = f"results/{bench}_plant_r5_honest"
+      out = f"{d}/{bench}.json"
+      with contextlib.redirect_stdout(io.StringIO()) as buf:
+        assert merge_seed_runs.main(
+            [f"{stem}_seed{s}.json" for s in range(3)] + ["--out", out]) == 0
+      got = json.loads(pathlib.Path(out).read_text())
+      want = json.loads(pathlib.Path(f"{stem}.json").read_text())
+      for k in ("_checkpoint", "values"):
+        json_close(got[k], want[k], k, atol=1e-12, rtol=0.0)
+      log(f"  d. {buf.getvalue().strip()} equals {stem}.json (_checkpoint, "
+          f"values within 1e-12)")
+  numbers = dict(gn_ms=gn_ms, bn_affine_ms=bn_ms, busy=prof["busy"],
+                 flops=flops, bound_ms=bound_ms)
+  return launches, numbers
+
+
 def main():
   ap = argparse.ArgumentParser()
   ap.add_argument("--profile", metavar="PATH",
@@ -3430,6 +3547,7 @@ def main():
     return 1
 
   from carla_garage_tpu_torch.config import DEFAULT_CONFIG
+  from carla_garage_tpu_torch.eval import benchmark
   from carla_garage_tpu_torch.ops import bev_fill as ops_bev_fill
   from carla_garage_tpu_torch.ops import build, kernel_cases
   from carla_garage_tpu_torch.ops import raycast as ops_raycast
@@ -3604,6 +3722,8 @@ def main():
   common = ["--honest", "--benchmarks", "longest6", "--max-ticks",
             str(CARLA_TICKS), "--results-dir", f"{assets.name}/results"]
   carla_launches, carla_ticks = {}, {}
+  # phases 22-23 in one chunk of CARLA_TICKS, as the CPU tests patch it
+  runner_chunk, benchmark.CARLA_CHUNK = benchmark.CARLA_CHUNK, CARLA_TICKS
   clock.start("run_benchmarks, the expert, one batch over Town01 and "
               "Town02")
   carla_launches["bench_carla_expert"], carla_ticks["bench_carla_expert"], \
@@ -3620,6 +3740,7 @@ def main():
               "--towns", "Town01"],
           2 * IMPORTED_ROUTES["Town01"], 2, root, kernels, card)
   rc_err = max(rc_err, err)
+  benchmark.CARLA_CHUNK = runner_chunk
 
   clock.start("train_transfuser end to end at full width on Town01 and "
               "synth, then resumed")
@@ -3660,6 +3781,10 @@ def main():
   dp_launches, _ = multi_gpu(cfg, maps, lanes, scene, state0, frames,
                              kernels, card)
 
+  clock.start("the remaining entry points: bench_forward at full spec with "
+              "both norms, profiled, card vs CPU; merge_seed_runs")
+  fwd_launches, _ = remaining_entry_points(kernels, card)
+
   clock.start("output")
   n_leaves = 0
   for path, x in tree_items(state):
@@ -3698,7 +3823,8 @@ def main():
                     "converted_ensemble": ensemble_launches[name],
                     "converted_plant": plant_conv_launches[name],
                     "dp_train": dp_launches["dp_train"][name],
-                    "dp_eval": dp_launches["dp_eval"][name]}
+                    "dp_eval": dp_launches["dp_eval"][name],
+                    "bench_forward": fwd_launches[name]}
              for name in kernels}
   log(f"  launches: {by_path} (tick: {TICKS} ticks, train_step: "
       f"{TRAIN_STEPS} steps, eval: {eval_ticks} ticks, dagger: "
@@ -3714,7 +3840,8 @@ def main():
       f"{ensemble_ticks} ticks, converted_plant: {PLANT_CONVERTED_TICKS} "
       f"ticks, dp_train: {DP_TRAIN_STEPS} steps on each of {DP_RANKS} "
       f"ranks, dp_eval: {DP_EVAL_TICKS} ticks on each of {DP_RANKS} ranks, "
-      f"entry_*: whole runs)")
+      f"bench_forward: 2 runs of {FWD_ITERS} timed forwards, entry_*: "
+      f"whole runs)")
   (c_ms, c_plain, c_cost), (s_ms, s_plain, s_cost), (f_ms, f_plain,
                                                      f_cost) = (
       export_times[k] for k in ("camera", "sweep", "fill"))

@@ -15,9 +15,10 @@ used) and different CenterNet box counts (traffic placed around episodes
 the losses and aux losses against JAX's meshed step (the port train
 test's tolerance), the all-reduced gradients against the one-process
 step (1e-5 of their norm) and against JAX's, ZeRO-1 AdamW against plain
-AdamW, and the Kendall log-variances' gradients with the regularizer
-counted once. PlanT likewise, on a batch whose halves hold different
-waypoint weights and forecast-label counts.
+AdamW, the Kendall log-variances' gradients with the regularizer counted
+once, and the meshed eval step's losses, mIoU and confusion against
+JAX's meshed eval step and one process. PlanT likewise, on a batch whose
+halves hold different waypoint weights and forecast-label counts.
 """
 
 import dataclasses
@@ -45,7 +46,7 @@ from carla_garage_tpu.train import transfuser_train as j_tt
 from carla_garage_tpu_torch.convert import load_flax_params
 from carla_garage_tpu_torch.models import transfuser as ttf
 from carla_garage_tpu_torch.models.plant import PlanT, PlanTConfig
-from carla_garage_tpu_torch.parallel import launch, mesh, workers
+from carla_garage_tpu_torch.parallel import launch, workers
 from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
 from carla_garage_tpu_torch.sensors.lidar import full_lidar_grid
 from carla_garage_tpu_torch.sim.datagen import Frames
@@ -131,12 +132,13 @@ def port_model(np_params):
 
 @pytest.fixture(scope="module")
 def jax_meshed(setup):
-  """JAX's train step on a 2-device mesh with optax.sgd(1.0): the new
-  parameters are the old minus the gradient."""
+  """JAX's train step on a 2-device mesh with optax.sgd(1.0) (the new
+  parameters are the old minus the gradient), and its eval step on the
+  same mesh, inputs and key from the same parameters."""
   s = setup
   jm_ = j_mesh.make_mesh(2)
   tx = optax.sgd(1.0)
-  step_fn, _, _ = j_tt.make_transfuser_train_step(
+  step_fn, eval_fn, _ = j_tt.make_transfuser_train_step(
       JCFG, TCFG, s["jm"], tx, s["maps"], s["scene"], s["frames"], s["cam"],
       s["lid"])
   by_episode = NamedSharding(jm_, P(None, "dp"))
@@ -146,12 +148,16 @@ def jax_meshed(setup):
                                x.shape[1] == B else rep), s["frames"])
   scene = j_mesh.shard_leading(jm_, s["scene"], B)
   assert len(scene.route.num_valid.sharding.device_set) == 2
-  params = j_mesh.replicate(jm_, jax.tree.map(jnp.array, s["np_params"]))
+  put = lambda: j_mesh.replicate(jm_, jax.tree.map(jnp.array,
+                                                   s["np_params"]))
+  maps = j_mesh.replicate(jm_, s["maps"])
+  ev = eval_fn(put(), jnp.asarray(F_IDX), s["rng"], maps, scene, frames)
+  params = put()
   new, _, aux = step_fn(params, tx.init(params), jnp.asarray(F_IDX),
-                        s["rng"], j_mesh.replicate(jm_, s["maps"]), scene,
-                        frames)
+                        s["rng"], maps, scene, frames)
   return dict(new=jax.tree.map(np.asarray, new),
-              aux={k: np.asarray(v) for k, v in aux.items()})
+              aux={k: np.asarray(v) for k, v in aux.items()},
+              eval={k: np.asarray(v) for k, v in ev.items()})
 
 
 def payload(setup, runs):
@@ -179,7 +185,8 @@ def port_runs(setup, tmp_path_factory):
   torch.save(payload(setup, one_runs), d / "one.pt")
   ranks = launch.spawn(workers.transfuser_step_rank, 2, "gloo", "cpu",
                        str(d / "dp.pt"), tmpdir=str(d), threads=1)
-  return ranks, workers.transfuser_step_rank(None, str(d / "one.pt"))
+  return ranks, workers.transfuser_step_rank(None, str(d / "one.pt"),
+                                             device="cpu")
 
 
 def rel_err(a: dict, b: dict) -> float:
@@ -288,16 +295,39 @@ def test_kendall_regularizer_counted_once(port_runs, jax_meshed):
         "total")
 
 
-def test_eval_step_refuses_a_mesh(setup):
+def test_eval_step_under_a_mesh_matches_jax_and_one_process(setup, tmp_path,
+                                                          jax_meshed):
+  """eval_step on two gloo ranks, each on its two episodes (unequal
+  sample weights and box counts), returns the global batch's losses,
+  mIoU, confusion and checkpoint angle error: those of JAX's eval step
+  on the 2-device mesh and of one port process. JAX's eval renders frame
+  k with key k of its key's split, not with the train step's nested one."""
   s = setup
-  model = port_model(s["np_params"])
-  view = mesh.Mesh(group=None, rank=0, size=2, device=torch.device("cpu"))
-  _, eval_step, _ = tt.make_transfuser_train_step(
-      CFG, TCFG, model, torch.optim.SGD(model.parameters(), lr=1.0),
-      s["t_maps"], s["t_scene"], s["t_frames"], s["cam"], s["lid"],
-      mesh=view)
-  with pytest.raises(NotImplementedError, match="mesh"):
-    eval_step(F_IDX, draws=s["draws"])
+  n_lidar = s["lid"].shape[0] * s["lid"].shape[1]
+  draws = [batch_draws(r, n_lidar)
+           for r in jax.random.split(s["rng"], len(F_IDX))]
+  torch.save(dict(payload(setup, []), draws=draws), tmp_path / "eval.pt")
+  ranks = launch.spawn(workers.transfuser_eval_rank, 2, "gloo", "cpu",
+                       str(tmp_path / "eval.pt"), tmpdir=str(tmp_path),
+                       threads=1)
+  one = workers.transfuser_eval_rank(None, str(tmp_path / "eval.pt"),
+                                     device="cpu")
+  want = jax_meshed["eval"]
+  assert set(ranks[0]) == set(one) == set(want)
+  for k in want:
+    assert torch.equal(ranks[0][k], ranks[1][k]), k
+  assert torch.equal(ranks[0]["confusion"], one["confusion"])
+  np.testing.assert_array_equal(ranks[0]["confusion"].numpy(),
+                                want["confusion"])
+  alive = s["t_frames"].alive[F_IDX]
+  assert int(one["confusion"].sum()) == int(alive.sum()) < alive.numel()
+  for k in set(want) - {"confusion"}:
+    for ref, what in ((one[k], "one process"), (want[k], "jax")):
+      got, ref = float(ranks[0][k]), float(ref)
+      # mIoU within 1e-6, the losses and the angle error within 1e-5 of
+      # their value
+      bar = 1e-6 if k.startswith("miou") else 1e-5 * abs(ref)
+      assert abs(got - ref) <= bar, (what, k, got, ref)
 
 
 PCFG = j_plant.micro_plant()
@@ -354,7 +384,8 @@ def test_plant_dp_step_matches_one_process_and_jax(tmp_path):
   ranks = launch.spawn(workers.plant_step_rank, 2, "gloo", "cpu",
                        str(tmp_path / "plant.pt"), tmpdir=str(tmp_path),
                        threads=1)
-  one = workers.plant_step_rank(None, str(tmp_path / "plant.pt"))
+  one = workers.plant_step_rank(None, str(tmp_path / "plant.pt"),
+                                device="cpu")
   for run in range(2):
     r0, r1, o = ranks[0][run], ranks[1][run], one[run]
     for k in o["aux"]:

@@ -147,7 +147,8 @@ def test_sharded_expert_rollout_matches_jax_meshed_records(tmp_path):
   compare_records(recs, j_recs, benchmark.aggregate(recs),
                   j_bench.aggregate(j_recs))
   assert max(r["scores"]["score_route"] for r in recs) > 0
-  assert workers.rollout_records_rank(None, str(path)) == recs
+  assert workers.rollout_records_rank(None, str(path),
+                                      device="cpu") == recs
 
 
 @pytest.fixture(scope="module")

@@ -22,8 +22,8 @@ from carla_garage_tpu_torch.config import DEFAULT_CONFIG as CFG
 from carla_garage_tpu_torch.sim import criteria, expert, route_planner, ukf
 from carla_garage_tpu_torch.sim.traffic import traffic_step, walker_step
 from carla_garage_tpu_torch.structs import (CriteriaState, PIDState,
-                                            PlannerState, VehicleStates,
-                                            WalkerStates, tree_items)
+                                            VehicleStates, WalkerStates,
+                                            tree_items)
 from test_torch_port_scene import jax_batch_to_port, jax_leaves, to_port
 
 T = lambda a: torch.from_numpy(np.array(a))
@@ -92,8 +92,7 @@ def test_route_planners_match_jax(batch):
   rng = np.random.default_rng(2)
   r, jr = scene.route, j_scene.route
   jdense = jsparse = j_rp.planner_reset((2,))
-  tdense = tsparse = PlannerState(idx=torch.zeros(2, dtype=torch.int32),
-                                  is_last=torch.zeros(2, dtype=torch.bool))
+  tdense = tsparse = route_planner.planner_reset((2,), device="cpu")
   for step in range(12):
     # drive along the dense route with some lateral noise
     k = np.minimum(6 * step, np.asarray(jr.num_valid) - 1)

@@ -1,0 +1,203 @@
+"""Episode loop (port of carla_garage_tpu/sim/episode.py).
+
+One tick advances the whole batch: policy control -> scenario triggers and
+effects -> ego dynamics -> NPC traffic -> walkers -> criteria. Episodes
+that finish freeze in place by masking, not branching, and a tick makes no
+host sync, so a later step can capture a chunk of ticks as one CUDA graph.
+``rollout`` is a Python loop over ticks where the JAX package scans;
+``rollout_chunked`` checks once per chunk of ticks whether every episode
+is done, and ``rollout_recorded`` also keeps a decimated trajectory log.
+
+The policy is the privileged expert (``sim/expert.expert_step``) unless
+the caller passes another, such as the sensor agent's. Randomness: the
+policy and the scenario engine draw their noise from the
+``torch.Generator`` passed to ``sim_step`` / ``rollout``, or take it as
+explicit tensors in ``draws``: ``draws["control_loss"]`` [B,K] is the
+scenario engine's (``sim/scenarios.py``), every other key the policy's
+(see ``sim/expert.py`` and ``agents/sensor_agent.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from portbench.reference.cgt.config import GlobalConfig
+from portbench.reference.cgt.maps.town_map import LaneGraph, MapStack
+from portbench.reference.cgt.sim.criteria import criteria_step, episode_done
+from portbench.reference.cgt.sim.dynamics import bicycle_step
+from portbench.reference.cgt.sim.expert import expert_step
+from portbench.reference.cgt.sim.geometry import normalize_angle
+from portbench.reference.cgt.sim.scenarios import scenario_step
+from portbench.reference.cgt.sim.traffic import traffic_step, walker_step
+from portbench.reference.cgt.structs import (ScenarioSpecs, ScenarioState,
+                                            Scene, SimState, tree_map)
+from portbench.reference.cgt.utils.watchdog import Watchdog
+
+# Control policy signature:
+#   (cfg, maps, scene, state, generator=None, draws=None)
+#     -> (Control, dict of SimState field updates)
+PolicyFn = Callable
+
+N_NEAREST_VEHICLES = 8   # rollout_recorded's snapshot: nearest actors kept
+N_NEAREST_WALKERS = 2
+
+
+def freeze_done(done: torch.Tensor, old, new):
+  """Keep `old` wherever the episode is done. done [B]; leaves [B,...]."""
+  def sel(o, n):
+    d = done.reshape(done.shape + (1,) * (n.ndim - 1))
+    return torch.where(d, o, n)
+  return tree_map(sel, old, new)
+
+
+@torch.no_grad()
+def sim_step(cfg: GlobalConfig, maps: MapStack, lanes: LaneGraph,
+             scene: Scene, state: SimState, policy: PolicyFn = expert_step,
+             generator: torch.Generator | None = None,
+             draws: dict | None = None) -> SimState:
+  """Advance the whole batch one tick.
+
+  draws: this tick's random numbers as tensors: "control_loss" [B,K] for
+  the scenario engine, the rest under the policy's names; what is not
+  given is drawn from `generator`."""
+  draws = dict(draws or {})
+  control_loss = draws.pop("control_loss", None)
+  control, updates = policy(cfg, maps, scene, state, generator=generator,
+                            draws=draws)
+
+  # scenario triggers and effects: the steer noise is added after the
+  # policy and before the dynamics
+  effects = None
+  if isinstance(scene.scenarios, ScenarioSpecs) and \
+      isinstance(state.scenario, ScenarioState):
+    new_scn, effects = scenario_step(cfg, scene.scenarios, state.scenario,
+                                     state, generator=generator,
+                                     control_loss=control_loss)
+    control = control.replace(steer=control.steer + effects["steer_noise"])
+    updates = dict(updates, scenario=new_scn)
+
+  # all agents advance simultaneously (world.tick semantics)
+  pos, yaw, speed = bicycle_step(state.ego.pos, state.ego.yaw,
+                                 state.ego.speed, control.steer,
+                                 control.throttle, control.brake, cfg.sim)
+  new_ego = state.ego.replace(pos=pos, yaw=normalize_angle(yaw), speed=speed)
+  new_veh = traffic_step(cfg, lanes, scene, state, effects)
+  new_wlk = walker_step(cfg, scene, state)
+
+  moved = state.replace(ego=new_ego, vehicles=new_veh, walkers=new_wlk,
+                        tick=state.tick + 1, **updates)
+  moved = moved.replace(criteria=criteria_step(cfg, maps, scene,
+                                               state.ego.pos, moved))
+  done = state.done | episode_done(cfg, moved)
+  # a finished episode keeps its whole state, scenario state included
+  return freeze_done(state.done, state, moved).replace(done=done)
+
+
+def rollout(cfg: GlobalConfig, maps: MapStack, lanes: LaneGraph,
+            scene: Scene, state: SimState, n_ticks: int,
+            policy: PolicyFn = expert_step,
+            generator: torch.Generator | None = None,
+            draws: list | None = None, draw_fn=None) -> SimState:
+  """Run n_ticks of simulation. draws: one dict of draws per tick, or None
+  to take each tick's from draw_fn() when given (a data-parallel rank's
+  slice of the global draws, ``eval/benchmark._sharded_draw_fn``), else to
+  draw every tick's noise from `generator`."""
+  for i in range(n_ticks):
+    tick = draws[i] if draws is not None else \
+        (draw_fn() if draw_fn is not None else None)
+    state = sim_step(cfg, maps, lanes, scene, state, policy,
+                     generator=generator, draws=tick)
+  return state
+
+
+def _snapshot(st: SimState) -> dict:
+  """One decimated log entry: the ego (x, y, yaw, speed), the nearest
+  vehicles and walkers (position, yaw, valid), tick and alive. Invalid
+  slots sort last at +inf distance, ties in slot order (a stable sort, as
+  XLA's)."""
+  def nearest(pos, valid, n):
+    d = torch.linalg.vector_norm(pos - st.ego.pos[:, None], dim=-1)
+    d = torch.where(valid, d, torch.inf)
+    idx = torch.argsort(d, dim=-1, stable=True)[:, :n]
+    return idx, torch.isfinite(torch.gather(d, 1, idx))
+
+  def take(a, idx):
+    if a.ndim == 3:
+      return torch.gather(a, 1, idx[..., None].expand(*idx.shape,
+                                                      a.shape[-1]))
+    return torch.gather(a, 1, idx)
+
+  veh, wlk = st.vehicles, st.walkers
+  iv, fin_v = nearest(veh.pos, veh.valid, N_NEAREST_VEHICLES)
+  iw, fin_w = nearest(wlk.pos, wlk.valid, N_NEAREST_WALKERS)
+  return dict(
+      ego=torch.cat([st.ego.pos, st.ego.yaw[:, None],
+                     st.ego.speed[:, None]], -1),
+      veh_pos=take(veh.pos, iv), veh_yaw=take(veh.yaw, iv),
+      veh_valid=take(veh.valid, iv) & fin_v,
+      wlk_pos=take(wlk.pos, iw),
+      wlk_valid=take(wlk.valid, iw) & fin_w,
+      tick=st.tick, alive=~st.done)
+
+
+def rollout_recorded(cfg: GlobalConfig, maps: MapStack, lanes: LaneGraph,
+                     scene: Scene, state: SimState, n_ticks: int,
+                     every: int = 10, policy: PolicyFn = expert_step,
+                     generator: torch.Generator | None = None,
+                     draws: list | None = None, draw_fn=None):
+  """Rollout that also records a decimated trajectory log (the
+  ScenarioLogger analog: every 10th frame, the nearby actors) for replay
+  clips and infraction maps.
+
+  Returns (final_state, traj dict of [T',B,...] tensors) with
+  T' = n_ticks // every snapshots, each taken after `every` ticks: ego
+  (x, y, yaw, speed), the 8 nearest vehicles and 2 nearest walkers
+  (position, yaw, valid), tick and alive. draws: one dict per tick
+  (T' * every of them), or None to take them from draw_fn or
+  `generator` as ``rollout`` does."""
+  snaps = []
+  for f in range(n_ticks // every):
+    state = rollout(cfg, maps, lanes, scene, state, every, policy,
+                    generator=generator,
+                    draws=draws[f * every:(f + 1) * every]
+                    if draws is not None else None, draw_fn=draw_fn)
+    snaps.append(_snapshot(state))
+  if not snaps:
+    return state, {}
+  return state, {k: torch.stack([s[k] for s in snaps]) for k in snaps[0]}
+
+
+def rollout_chunked(cfg: GlobalConfig, maps: MapStack, lanes: LaneGraph,
+                    scene: Scene, state: SimState, max_ticks: int,
+                    chunk: int = 256, policy: PolicyFn = expert_step,
+                    watchdog_s: float | None = 1800.0,
+                    generator: torch.Generator | None = None,
+                    draw_fn=None) -> SimState:
+  """Rollout in chunks of `chunk` ticks with an early exit once every
+  episode is done. Whole chunks run, so the ticks may pass max_ticks.
+
+  The only host sync is the done check after each chunk; the ticks inside
+  a chunk make none. watchdog_s arms a hang watchdog, re-armed once per
+  chunk, that raises KeyboardInterrupt on the main thread when a chunk
+  takes longer (a wedged device or a pathological first compile).
+  draw_fn: as ``rollout`` takes it."""
+  wd = Watchdog(watchdog_s) if watchdog_s else None
+  if wd:
+    wd.start()
+  try:
+    ticks = 0
+    while ticks < max_ticks:
+      state = rollout(cfg, maps, lanes, scene, state, chunk, policy,
+                      generator=generator, draw_fn=draw_fn)
+      ticks += chunk
+      all_done = bool(torch.all(state.done))     # the chunk's one host sync
+      if wd:
+        wd.update()                      # re-arm once per completed chunk
+      if all_done:
+        break
+  finally:
+    if wd:
+      wd.stop()
+  return state

@@ -8,7 +8,10 @@ inputs -> the PlanT forward -> PID control, plus the stuck/creep recovery
 with a privileged box test ahead of the ego. The policy is object-level:
 it renders no sensor, launches no hand kernel and draws no random number
 (``DRAW_KEYS`` is empty), so the scenario engine's draws stay in step
-between runs on the card and on the CPU. It makes no host sync.
+between runs on the card and on the CPU. It makes no host sync. The spans
+of a tick (``utils/profiling.py``): ``agent.localize`` (the planners),
+``agent.inputs`` (objects, route and flags), ``agent.model`` and
+``agent.control``.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from carla_garage_tpu_torch.sim.route_planner import planner_step
 from carla_garage_tpu_torch.structs import (LightState, PIDState,
                                             PlannerState, Scene, SimState,
                                             Struct)
+from carla_garage_tpu_torch.utils.profiling import span
 
 TARGET_SPEEDS = (0.0, 2.0, 5.0, 8.0)   # m/s of the target-speed classes
 OBJECT_RANGE_M = 32.0                  # PlanT's observation radius
@@ -227,65 +231,71 @@ def make_plant_policy(model: PlanT, params, pcfg: PlanTConfig,
                      "draws nothing")
     ag: PlanTAgentState = state.agent
     ego = state.ego
-    route = scene.route
-    pl_dense = planner_step(ag.planner_dense, route.points, route.seg_len,
-                            route.num_valid, ego.pos,
-                            _dense_planner_params(cfg))
-    pl_sparse = planner_step(
-        ag.planner_sparse, route.sparse_points,
-        _sparse_seg_len(route.sparse_points, route.sparse_num_valid),
-        route.sparse_num_valid, ego.pos, _sparse_planner_params(cfg))
+    with span("agent.localize"):
+      route = scene.route
+      pl_dense = planner_step(ag.planner_dense, route.points, route.seg_len,
+                              route.num_valid, ego.pos,
+                              _dense_planner_params(cfg))
+      pl_sparse = planner_step(
+          ag.planner_sparse, route.sparse_points,
+          _sparse_seg_len(route.sparse_points, route.sparse_num_valid),
+          route.sparse_num_valid, ego.pos, _sparse_planner_params(cfg))
 
-    boxes, box_types = extract_objects(cfg, pcfg, scene, state)
-    route_tok = extract_route(pcfg, scene, state, pl_dense.idx)
-    light, stop, junction, cleared = privileged_flags(
-        cfg, maps, scene, state, ag.cleared_stop_signs, pl_dense.idx)
-    out = model(boxes, box_types, route_tok, light, stop, junction,
-                ego.speed)
-    if direct:
-      probs = torch.softmax(out["pred_target_speed"], -1)
-      ts = torch.sum(probs * target_speeds, -1)
-      ts = torch.where(probs[:, 0] > brake_threshold, 0.0, ts)
-      aim = out["pred_checkpoint"][:, 2]
-      angle = torch.rad2deg(torch.atan2(aim[:, 1], aim[:, 0])) / 90.0
-      steer, throttle, brake, pt2, ps2 = control_pid_direct(
-          ag.pid_turn, ag.pid_speed, ts, angle, ego.speed, cfg)
-    else:
-      steer, throttle, brake, pt2, ps2 = control_pid(
-          ag.pid_turn, ag.pid_speed, out["pred_wp"], ego.speed, cfg)
+    with span("agent.inputs"):
+      boxes, box_types = extract_objects(cfg, pcfg, scene, state)
+      route_tok = extract_route(pcfg, scene, state, pl_dense.idx)
+      light, stop, junction, cleared = privileged_flags(
+          cfg, maps, scene, state, ag.cleared_stop_signs, pl_dense.idx)
 
-    stuck, force = ag.stuck_count, ag.force_move
-    if creep:
-      e, s = cfg.expert, cfg.sim
-      stuck = torch.where(ego.speed < 0.1, ag.stuck_count + 1, 0)
-      start_creep = stuck > e.stuck_threshold
-      force = torch.where(start_creep, e.creep_duration,
-                          torch.clamp(ag.force_move - 1, min=0))
-      fwd = torch.stack([torch.cos(ego.yaw), torch.sin(ego.yaw)], -1)
-      box_c = ego.pos + fwd * (s.ego_extent_x + 1.25)
-      box_e = torch.stack([torch.full_like(ego.yaw, 1.25),
-                           torch.full_like(ego.yaw, s.ego_extent_y * 0.8)],
-                          -1)
-      veh, wlk = state.vehicles, state.walkers
-      hit_v = geo.obb_intersect(box_c[:, None], ego.yaw[:, None],
-                                box_e[:, None], veh.pos, veh.yaw,
-                                veh.extent) & veh.valid
-      hit_w = geo.obb_intersect(box_c[:, None], ego.yaw[:, None],
-                                box_e[:, None], wlk.pos, wlk.yaw,
-                                wlk.extent) & wlk.valid
-      obstructed = torch.any(hit_v, -1) | torch.any(hit_w, -1)
-      creeping = (force > 0) & ~obstructed
-      # an obstructed creep re-arms for when the box clears
-      force = torch.where((force > 0) & obstructed, e.creep_duration, force)
-      throttle = torch.where(creeping, e.creep_throttle, throttle)
-      brake = torch.where(creeping, 0.0,
-                          torch.where((force > 0) & obstructed, 1.0, brake))
-      stuck = torch.where(creeping, 0, stuck)
+    with span("agent.model"):
+      out = model(boxes, box_types, route_tok, light, stop, junction,
+                  ego.speed)
 
-    new_ag = PlanTAgentState(
-        planner_dense=pl_dense, planner_sparse=pl_sparse,
-        pid_turn=pt2, pid_speed=ps2, cleared_stop_signs=cleared,
-        stuck_count=stuck.to(torch.int32), force_move=force.to(torch.int32))
+    with span("agent.control"):
+      if direct:
+        probs = torch.softmax(out["pred_target_speed"], -1)
+        ts = torch.sum(probs * target_speeds, -1)
+        ts = torch.where(probs[:, 0] > brake_threshold, 0.0, ts)
+        aim = out["pred_checkpoint"][:, 2]
+        angle = torch.rad2deg(torch.atan2(aim[:, 1], aim[:, 0])) / 90.0
+        steer, throttle, brake, pt2, ps2 = control_pid_direct(
+            ag.pid_turn, ag.pid_speed, ts, angle, ego.speed, cfg)
+      else:
+        steer, throttle, brake, pt2, ps2 = control_pid(
+            ag.pid_turn, ag.pid_speed, out["pred_wp"], ego.speed, cfg)
+
+      stuck, force = ag.stuck_count, ag.force_move
+      if creep:
+        e, s = cfg.expert, cfg.sim
+        stuck = torch.where(ego.speed < 0.1, ag.stuck_count + 1, 0)
+        start_creep = stuck > e.stuck_threshold
+        force = torch.where(start_creep, e.creep_duration,
+                            torch.clamp(ag.force_move - 1, min=0))
+        fwd = torch.stack([torch.cos(ego.yaw), torch.sin(ego.yaw)], -1)
+        box_c = ego.pos + fwd * (s.ego_extent_x + 1.25)
+        box_e = torch.stack([torch.full_like(ego.yaw, 1.25),
+                             torch.full_like(ego.yaw, s.ego_extent_y * 0.8)],
+                            -1)
+        veh, wlk = state.vehicles, state.walkers
+        hit_v = geo.obb_intersect(box_c[:, None], ego.yaw[:, None],
+                                  box_e[:, None], veh.pos, veh.yaw,
+                                  veh.extent) & veh.valid
+        hit_w = geo.obb_intersect(box_c[:, None], ego.yaw[:, None],
+                                  box_e[:, None], wlk.pos, wlk.yaw,
+                                  wlk.extent) & wlk.valid
+        obstructed = torch.any(hit_v, -1) | torch.any(hit_w, -1)
+        creeping = (force > 0) & ~obstructed
+        # an obstructed creep re-arms for when the box clears
+        force = torch.where((force > 0) & obstructed, e.creep_duration, force)
+        throttle = torch.where(creeping, e.creep_throttle, throttle)
+        brake = torch.where(creeping, 0.0,
+                            torch.where((force > 0) & obstructed, 1.0, brake))
+        stuck = torch.where(creeping, 0, stuck)
+
+      new_ag = PlanTAgentState(
+          planner_dense=pl_dense, planner_sparse=pl_sparse,
+          pid_turn=pt2, pid_speed=ps2, cleared_stop_signs=cleared,
+          stuck_count=stuck.to(torch.int32), force_move=force.to(torch.int32))
     return Control(steer=steer, throttle=throttle, brake=brake), \
         {"agent": new_ag}
 

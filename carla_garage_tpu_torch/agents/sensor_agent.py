@@ -4,7 +4,11 @@ carla_garage_tpu/agents/sensor_agent.py).
 Per tick: noisy GNSS and compass -> UKF predict/update -> route planners
 -> camera render -> LiDAR half-sweep render, merged with the previous half
 sweep -> voxelize -> model forward -> PID control, plus the stuck/creep
-recovery with its LiDAR safety box.
+recovery with its LiDAR safety box. The spans of a tick
+(``utils/profiling.py``): ``agent.localize`` (GNSS, compass, UKF, route
+planners), ``agent.inputs`` (camera, LiDAR, realignment, voxelize),
+``agent.model`` (the forward with its casts and the ensemble's mean) and
+``agent.control``.
 
 The three random draws of a tick (GNSS noise, compass noise, LiDAR
 dropoff uniforms) come from the caller's ``torch.Generator``, or as
@@ -48,6 +52,7 @@ from carla_garage_tpu_torch.sim.ukf import (UKFState, ukf_predict, ukf_reset,
                                             ukf_update)
 from carla_garage_tpu_torch.structs import (PIDState, PlannerState, Scene,
                                             SimState, Struct, tree_map)
+from carla_garage_tpu_torch.utils.profiling import span
 
 GNSS_NOISE_M = 0.55          # 5e-6 deg lat/lon stddev * earth scale
 COMPASS_NOISE = 0.001
@@ -186,128 +191,132 @@ def make_transfuser_policy(model: LidarCenterNet, params,
       x = draws.get(key)
       return fn(shape, generator=generator, device=dev) if x is None else x
 
-    # --- localization: noisy GNSS/compass -> UKF ---
-    gps = ego.pos + GNSS_NOISE_M * draw("gps", (B, 2), torch.randn)
-    compass = ego.yaw + COMPASS_NOISE * draw("compass", (B,), torch.randn)
-    ukf = ukf_predict(ag.ukf, ag.prev_control[:, 0], ag.prev_control[:, 1],
-                      ag.prev_control[:, 2], cfg.sim)
-    z = torch.stack([gps[:, 0], gps[:, 1], compass, ego.speed], -1)
-    ukf = ukf_update(ukf, z)
-    pos_f = ukf.x[:, :2]
-    yaw_f = ukf.x[:, 2]
+    with span("agent.localize"):
+      # --- localization: noisy GNSS/compass -> UKF ---
+      gps = ego.pos + GNSS_NOISE_M * draw("gps", (B, 2), torch.randn)
+      compass = ego.yaw + COMPASS_NOISE * draw("compass", (B,), torch.randn)
+      ukf = ukf_predict(ag.ukf, ag.prev_control[:, 0], ag.prev_control[:, 1],
+                        ag.prev_control[:, 2], cfg.sim)
+      z = torch.stack([gps[:, 0], gps[:, 1], compass, ego.speed], -1)
+      ukf = ukf_update(ukf, z)
+      pos_f = ukf.x[:, :2]
+      yaw_f = ukf.x[:, 2]
 
-    # --- route planners on the filtered pose ---
-    route = scene.route
-    pl_dense = planner_step(ag.planner_dense, route.points, route.seg_len,
-                            route.num_valid, pos_f,
-                            _dense_planner_params(cfg))
-    pl_sparse = planner_step(
-        ag.planner_sparse, route.sparse_points,
-        _sparse_seg_len(route.sparse_points, route.sparse_num_valid),
-        route.sparse_num_valid, pos_f, _sparse_planner_params(cfg))
-    tp_world, cmd = route_lookup(route.sparse_points, route.sparse_cmd,
-                                 route.sparse_num_valid, pl_sparse.idx, 1)
-    target_point = geo.world_to_ego(tp_world, pos_f, yaw_f)
+      # --- route planners on the filtered pose ---
+      route = scene.route
+      pl_dense = planner_step(ag.planner_dense, route.points, route.seg_len,
+                              route.num_valid, pos_f,
+                              _dense_planner_params(cfg))
+      pl_sparse = planner_step(
+          ag.planner_sparse, route.sparse_points,
+          _sparse_seg_len(route.sparse_points, route.sparse_num_valid),
+          route.sparse_num_valid, pos_f, _sparse_planner_params(cfg))
+      tp_world, cmd = route_lookup(route.sparse_points, route.sparse_cmd,
+                                   route.sparse_num_valid, pl_sparse.idx, 1)
+      target_point = geo.world_to_ego(tp_world, pos_f, yaw_f)
 
-    # --- sensors: the camera, then the front or rear LiDAR half by tick
-    # parity, selected before the cast ---
-    cam = render_camera(cfg, maps, scene, state, cam_grid)
-    if jpeg_quality is not None:
-      cam = dict(cam, rgb=jpeg_artifacts(cam["rgb"], quality=jpeg_quality))
-    even = (state.tick % 2 == 0)[:, None, None]
-    grid_sel = torch.where(even, g_front[None], g_rear[None])
-    pts_now, val_now = render_lidar(cfg, maps, scene, state, grid_sel,
-                                    uniform=draws.get("lidar"),
-                                    per_episode=True, generator=generator)
-    # realign the buffered half sweeps into the current ego frame
-    K = ag.prev_lidar.shape[1]
-    prev_pts_world = geo.ego_to_world(ag.prev_lidar[..., :2],
-                                      ag.prev_pose[:, :, None, :2],
-                                      ag.prev_pose[:, :, 2][:, :, None])
-    prev_in_cur = geo.world_to_ego(prev_pts_world, pos_f[:, None, None],
-                                   yaw_f[:, None, None])
-    prev_pts = torch.cat([prev_in_cur, ag.prev_lidar[..., 2:]], -1)
-    merged_pts = torch.cat([pts_now, prev_pts[:, 0]], 1)
-    merged_val = torch.cat([val_now, ag.prev_lidar_valid[:, 0]], 1)
-    lidar_bev = voxelize(merged_pts, merged_val, cfg)
-    # the newest buffered sweep merges with the live one; older sweeps
-    # voxelize into extra channel pairs
-    if K > 1:
-      lidar_bev = torch.cat([lidar_bev] + [
-          voxelize(prev_pts[:, k], ag.prev_lidar_valid[:, k], cfg)
-          for k in range(1, K)], 1)
-    lidar_bev = lidar_bev.permute(0, 2, 3, 1)
+    with span("agent.inputs"):
+      # --- sensors: the camera, then the front or rear LiDAR half by tick
+      # parity, selected before the cast ---
+      cam = render_camera(cfg, maps, scene, state, cam_grid)
+      if jpeg_quality is not None:
+        cam = dict(cam, rgb=jpeg_artifacts(cam["rgb"], quality=jpeg_quality))
+      even = (state.tick % 2 == 0)[:, None, None]
+      grid_sel = torch.where(even, g_front[None], g_rear[None])
+      pts_now, val_now = render_lidar(cfg, maps, scene, state, grid_sel,
+                                      uniform=draws.get("lidar"),
+                                      per_episode=True, generator=generator)
+      # realign the buffered half sweeps into the current ego frame
+      K = ag.prev_lidar.shape[1]
+      prev_pts_world = geo.ego_to_world(ag.prev_lidar[..., :2],
+                                        ag.prev_pose[:, :, None, :2],
+                                        ag.prev_pose[:, :, 2][:, :, None])
+      prev_in_cur = geo.world_to_ego(prev_pts_world, pos_f[:, None, None],
+                                     yaw_f[:, None, None])
+      prev_pts = torch.cat([prev_in_cur, ag.prev_lidar[..., 2:]], -1)
+      merged_pts = torch.cat([pts_now, prev_pts[:, 0]], 1)
+      merged_val = torch.cat([val_now, ag.prev_lidar_valid[:, 0]], 1)
+      lidar_bev = voxelize(merged_pts, merged_val, cfg)
+      # the newest buffered sweep merges with the live one; older sweeps
+      # voxelize into extra channel pairs
+      if K > 1:
+        lidar_bev = torch.cat([lidar_bev] + [
+            voxelize(prev_pts[:, k], ag.prev_lidar_valid[:, k], cfg)
+            for k in range(1, K)], 1)
+      lidar_bev = lidar_bev.permute(0, 2, 3, 1)
 
-    # --- model forward, averaged over the ensemble ---
-    cmd_oh = command_onehot(cmd)
-    outs = [fwd(m, cam["rgb"], lidar_bev, target_point, cmd_oh, ego.speed)
-            for m in members]
-    out = tree_map(lambda *xs: sum(xs) / len(xs), *outs)
+    with span("agent.model"):
+      # --- model forward, averaged over the ensemble ---
+      cmd_oh = command_onehot(cmd)
+      outs = [fwd(m, cam["rgb"], lidar_bev, target_point, cmd_oh, ego.speed)
+              for m in members]
+      out = tree_map(lambda *xs: sum(xs) / len(xs), *outs)
 
-    # --- control ---
-    if direct:
-      probs = torch.softmax(out["pred_target_speed"], -1)
-      if uncertainty_weight:
-        ts = torch.sum(probs * target_speeds, -1)       # expectation
-        ts = torch.where(probs[:, 0] > brake_threshold, 0.0, ts)
+    with span("agent.control"):
+      # --- control ---
+      if direct:
+        probs = torch.softmax(out["pred_target_speed"], -1)
+        if uncertainty_weight:
+          ts = torch.sum(probs * target_speeds, -1)       # expectation
+          ts = torch.where(probs[:, 0] > brake_threshold, 0.0, ts)
+        else:
+          ts = target_speeds[torch.argmax(probs, -1)]
+        if map_track:
+          aim_world, _ = route_lookup(route.points, route.cmd,
+                                      route.num_valid, pl_dense.idx, 4)
+          aim = geo.world_to_ego(aim_world, pos_f, yaw_f)
+        else:
+          aim = out["pred_checkpoint"][:, 2]              # ~2nd checkpoint
+        angle = torch.rad2deg(torch.atan2(aim[:, 1], aim[:, 0])) / 90.0
+        steer, throttle, brake, pt2, ps2 = control_pid_direct(
+            ag.pid_turn, ag.pid_speed, ts, angle, ego.speed, cfg)
       else:
-        ts = target_speeds[torch.argmax(probs, -1)]
-      if map_track:
-        aim_world, _ = route_lookup(route.points, route.cmd,
-                                    route.num_valid, pl_dense.idx, 4)
-        aim = geo.world_to_ego(aim_world, pos_f, yaw_f)
-      else:
-        aim = out["pred_checkpoint"][:, 2]              # ~2nd checkpoint
-      angle = torch.rad2deg(torch.atan2(aim[:, 1], aim[:, 0])) / 90.0
-      steer, throttle, brake, pt2, ps2 = control_pid_direct(
-          ag.pid_turn, ag.pid_speed, ts, angle, ego.speed, cfg)
-    else:
-      steer, throttle, brake, pt2, ps2 = control_pid(
-          ag.pid_turn, ag.pid_speed, out["pred_wp"], ego.speed, cfg)
+        steer, throttle, brake, pt2, ps2 = control_pid(
+            ag.pid_turn, ag.pid_speed, out["pred_wp"], ego.speed, cfg)
 
-    # --- stuck -> creep recovery, blocked by returns in the LiDAR
-    # safety box directly ahead ---
-    e, s = cfg.expert, cfg.sim
-    stuck = torch.where(ego.speed < 0.1, ag.stuck_count + 1, 0)
-    start_creep = stuck > e.stuck_threshold
-    force = torch.where(start_creep, e.creep_duration,
-                        torch.clamp(ag.force_move - 1, min=0))
-    in_box = (merged_val &
-              (merged_pts[..., 0] > s.ego_extent_x) &
-              (merged_pts[..., 0] < s.ego_extent_x + 2.5) &
-              (torch.abs(merged_pts[..., 1]) < s.ego_extent_y * 0.8) &
-              (merged_pts[..., 2] > 0.5) & (merged_pts[..., 2] < 1.5))
-    obstructed = torch.any(in_box, -1)
-    creeping = (force > 0) & ~obstructed
-    # an obstructed creep re-arms for when the box clears
-    force = torch.where((force > 0) & obstructed, e.creep_duration, force)
-    throttle = torch.where(creeping, e.creep_throttle, throttle)
-    brake = torch.where(creeping, 0.0,
-                        torch.where((force > 0) & obstructed, 1.0, brake))
-    stuck = torch.where(creeping, 0, stuck)
+      # --- stuck -> creep recovery, blocked by returns in the LiDAR
+      # safety box directly ahead ---
+      e, s = cfg.expert, cfg.sim
+      stuck = torch.where(ego.speed < 0.1, ag.stuck_count + 1, 0)
+      start_creep = stuck > e.stuck_threshold
+      force = torch.where(start_creep, e.creep_duration,
+                          torch.clamp(ag.force_move - 1, min=0))
+      in_box = (merged_val &
+                (merged_pts[..., 0] > s.ego_extent_x) &
+                (merged_pts[..., 0] < s.ego_extent_x + 2.5) &
+                (torch.abs(merged_pts[..., 1]) < s.ego_extent_y * 0.8) &
+                (merged_pts[..., 2] > 0.5) & (merged_pts[..., 2] < 1.5))
+      obstructed = torch.any(in_box, -1)
+      creeping = (force > 0) & ~obstructed
+      # an obstructed creep re-arms for when the box clears
+      force = torch.where((force > 0) & obstructed, e.creep_duration, force)
+      throttle = torch.where(creeping, e.creep_throttle, throttle)
+      brake = torch.where(creeping, 0.0,
+                          torch.where((force > 0) & obstructed, 1.0, brake))
+      stuck = torch.where(creeping, 0, stuck)
 
-    stop_box, stop_valid, clear_stop = ag.stop_box, ag.stop_box_valid, \
-        ag.clear_stop
-    if stop_control and "pred_bb" in out:
-      stop_box, stop_valid, clear_stop, must_stop = _stop_controller(
-          cfg, out["pred_bb"], ag, pos_f, yaw_f, ego.speed)
-      throttle = torch.where(must_stop, 0.0, throttle)
-      brake = torch.where(must_stop, 1.0, brake)
+      stop_box, stop_valid, clear_stop = ag.stop_box, ag.stop_box_valid, \
+          ag.clear_stop
+      if stop_control and "pred_bb" in out:
+        stop_box, stop_valid, clear_stop, must_stop = _stop_controller(
+            cfg, out["pred_bb"], ag, pos_f, yaw_f, ego.speed)
+        throttle = torch.where(must_stop, 0.0, throttle)
+        brake = torch.where(must_stop, 1.0, brake)
 
-    control = Control(steer=steer, throttle=throttle, brake=brake)
-    new_pose = torch.stack([pos_f[:, 0], pos_f[:, 1], yaw_f], -1)
-    new_ag = ag.replace(
-        ukf=ukf, planner_dense=pl_dense, planner_sparse=pl_sparse,
-        pid_turn=pt2, pid_speed=ps2,
-        prev_control=torch.stack([steer, throttle, brake], -1),
-        prev_lidar=torch.cat([pts_now[:, None], ag.prev_lidar[:, :-1]], 1),
-        prev_lidar_valid=torch.cat([val_now[:, None],
-                                    ag.prev_lidar_valid[:, :-1]], 1),
-        prev_pose=torch.cat([new_pose[:, None], ag.prev_pose[:, :-1]], 1),
-        stuck_count=stuck.to(torch.int32),
-        force_move=force.to(torch.int32),
-        stop_box=stop_box, stop_box_valid=stop_valid,
-        clear_stop=clear_stop.to(torch.int32))
+      control = Control(steer=steer, throttle=throttle, brake=brake)
+      new_pose = torch.stack([pos_f[:, 0], pos_f[:, 1], yaw_f], -1)
+      new_ag = ag.replace(
+          ukf=ukf, planner_dense=pl_dense, planner_sparse=pl_sparse,
+          pid_turn=pt2, pid_speed=ps2,
+          prev_control=torch.stack([steer, throttle, brake], -1),
+          prev_lidar=torch.cat([pts_now[:, None], ag.prev_lidar[:, :-1]], 1),
+          prev_lidar_valid=torch.cat([val_now[:, None],
+                                      ag.prev_lidar_valid[:, :-1]], 1),
+          prev_pose=torch.cat([new_pose[:, None], ag.prev_pose[:, :-1]], 1),
+          stuck_count=stuck.to(torch.int32),
+          force_move=force.to(torch.int32),
+          stop_box=stop_box, stop_box_valid=stop_valid,
+          clear_stop=clear_stop.to(torch.int32))
     return control, {"agent": new_ag}
 
   # the draws in the order the policy takes them from a generator: GNSS,

@@ -13,6 +13,8 @@ import ctypes
 
 import torch
 
+from carla_garage_tpu_torch.utils.profiling import span
+
 NFIELDS = 9
 MISS_T = 1e9
 # floating-point operations the function needs, for the bound that
@@ -157,40 +159,42 @@ def raycast_boxes(origins: torch.Tensor, dirs: torch.Tensor,
   On CUDA tensors it launches the kernel on the current stream (and counts
   the launch in ``raycast_boxes.launches``) or raises; on CPU tensors it
   runs ``raycast_boxes_plain``. Any N works: there is no tile padding."""
-  if dirs.device.type == "cpu":
-    return raycast_boxes_plain(origins, dirs, boxes)
-  if dirs.device.type != "cuda":
-    raise ValueError(f"raycast_boxes: unsupported device {dirs.device}")
-  B, N, three = dirs.shape
-  K = boxes.shape[1]
-  if three != 3 or tuple(origins.shape) != (B, 3) or \
-      tuple(boxes.shape) != (B, K, NFIELDS):
-    raise ValueError(f"raycast_boxes: shapes origins {tuple(origins.shape)}"
-                     f", dirs {tuple(dirs.shape)}, boxes "
-                     f"{tuple(boxes.shape)} do not match [B,3], [B,N,3], "
-                     f"[B,K,{NFIELDS}]")
-  for name, x in (("origins", origins), ("dirs", dirs), ("boxes", boxes)):
-    if x.device != dirs.device:
-      raise ValueError(f"raycast_boxes: {name} on {x.device}, dirs on "
-                       f"{dirs.device}")
-    if x.dtype != torch.float32:
-      raise TypeError(f"raycast_boxes: {name} is {x.dtype}, needs float32")
-    if not x.is_contiguous():
-      raise ValueError(f"raycast_boxes: {name} is not contiguous")
-  t = torch.empty((B, N), dtype=torch.float32, device=dirs.device)
-  cls = torch.empty((B, N), dtype=torch.int32, device=dirs.device)
-  if B == 0 or N == 0:
+  with span("ops.raycast_boxes"):
+    if dirs.device.type == "cpu":
+      return raycast_boxes_plain(origins, dirs, boxes)
+    if dirs.device.type != "cuda":
+      raise ValueError(f"raycast_boxes: unsupported device {dirs.device}")
+    B, N, three = dirs.shape
+    K = boxes.shape[1]
+    if three != 3 or tuple(origins.shape) != (B, 3) or \
+        tuple(boxes.shape) != (B, K, NFIELDS):
+      raise ValueError(f"raycast_boxes: shapes origins "
+                       f"{tuple(origins.shape)}, dirs {tuple(dirs.shape)}, "
+                       f"boxes "
+                       f"{tuple(boxes.shape)} do not match [B,3], [B,N,3], "
+                       f"[B,K,{NFIELDS}]")
+    for name, x in (("origins", origins), ("dirs", dirs), ("boxes", boxes)):
+      if x.device != dirs.device:
+        raise ValueError(f"raycast_boxes: {name} on {x.device}, dirs on "
+                         f"{dirs.device}")
+      if x.dtype != torch.float32:
+        raise TypeError(f"raycast_boxes: {name} is {x.dtype}, needs float32")
+      if not x.is_contiguous():
+        raise ValueError(f"raycast_boxes: {name} is not contiguous")
+    t = torch.empty((B, N), dtype=torch.float32, device=dirs.device)
+    cls = torch.empty((B, N), dtype=torch.int32, device=dirs.device)
+    if B == 0 or N == 0:
+      return t, cls
+    fn = _launcher()
+    with torch.cuda.device(dirs.device):
+      stream = torch.cuda.current_stream(dirs.device).cuda_stream
+      err = fn(origins.data_ptr(), dirs.data_ptr(), boxes.data_ptr(),
+               t.data_ptr(), cls.data_ptr(), B, N, K, stream)
+    if err != 0:
+      raise RuntimeError(f"raycast_boxes kernel launch failed: CUDA error "
+                         f"{err}")
+    raycast_boxes.launches += 1
     return t, cls
-  fn = _launcher()
-  with torch.cuda.device(dirs.device):
-    stream = torch.cuda.current_stream(dirs.device).cuda_stream
-    err = fn(origins.data_ptr(), dirs.data_ptr(), boxes.data_ptr(),
-             t.data_ptr(), cls.data_ptr(), B, N, K, stream)
-  if err != 0:
-    raise RuntimeError(f"raycast_boxes kernel launch failed: CUDA error "
-                       f"{err}")
-  raycast_boxes.launches += 1
-  return t, cls
 
 
 raycast_boxes.launches = 0

@@ -7,6 +7,10 @@ host sync, so a later step can capture a chunk of ticks as one CUDA graph.
 ``rollout`` is a Python loop over ticks where the JAX package scans;
 ``rollout_chunked`` checks once per chunk of ticks whether every episode
 is done, and ``rollout_recorded`` also keeps a decimated trajectory log.
+A tick is the span ``sim.tick`` (``utils/profiling.py``) around the spans
+of its layers: ``sim.policy``, ``sim.scenarios``, ``sim.dynamics``,
+``sim.traffic`` (vehicles and walkers) and ``sim.criteria``; a chunk's
+done check is ``rollout.done_check``.
 
 The policy is the privileged expert (``sim/expert.expert_step``) unless
 the caller passes another, such as the sensor agent's. Randomness: the
@@ -33,6 +37,7 @@ from carla_garage_tpu_torch.sim.scenarios import scenario_step
 from carla_garage_tpu_torch.sim.traffic import traffic_step, walker_step
 from carla_garage_tpu_torch.structs import (ScenarioSpecs, ScenarioState,
                                             Scene, SimState, tree_map)
+from carla_garage_tpu_torch.utils.profiling import span
 from carla_garage_tpu_torch.utils.watchdog import Watchdog
 
 # Control policy signature:
@@ -62,37 +67,47 @@ def sim_step(cfg: GlobalConfig, maps: MapStack, lanes: LaneGraph,
   draws: this tick's random numbers as tensors: "control_loss" [B,K] for
   the scenario engine, the rest under the policy's names; what is not
   given is drawn from `generator`."""
-  draws = dict(draws or {})
-  control_loss = draws.pop("control_loss", None)
-  control, updates = policy(cfg, maps, scene, state, generator=generator,
-                            draws=draws)
+  with span("sim.tick"):
+    draws = dict(draws or {})
+    control_loss = draws.pop("control_loss", None)
+    with span("sim.policy"):
+      control, updates = policy(cfg, maps, scene, state,
+                                generator=generator, draws=draws)
 
-  # scenario triggers and effects: the steer noise is added after the
-  # policy and before the dynamics
-  effects = None
-  if isinstance(scene.scenarios, ScenarioSpecs) and \
-      isinstance(state.scenario, ScenarioState):
-    new_scn, effects = scenario_step(cfg, scene.scenarios, state.scenario,
-                                     state, generator=generator,
-                                     control_loss=control_loss)
-    control = control.replace(steer=control.steer + effects["steer_noise"])
-    updates = dict(updates, scenario=new_scn)
+    # scenario triggers and effects: the steer noise is added after the
+    # policy and before the dynamics
+    effects = None
+    if isinstance(scene.scenarios, ScenarioSpecs) and \
+        isinstance(state.scenario, ScenarioState):
+      with span("sim.scenarios"):
+        new_scn, effects = scenario_step(cfg, scene.scenarios,
+                                         state.scenario, state,
+                                         generator=generator,
+                                         control_loss=control_loss)
+        control = control.replace(steer=control.steer +
+                                  effects["steer_noise"])
+        updates = dict(updates, scenario=new_scn)
 
-  # all agents advance simultaneously (world.tick semantics)
-  pos, yaw, speed = bicycle_step(state.ego.pos, state.ego.yaw,
-                                 state.ego.speed, control.steer,
-                                 control.throttle, control.brake, cfg.sim)
-  new_ego = state.ego.replace(pos=pos, yaw=normalize_angle(yaw), speed=speed)
-  new_veh = traffic_step(cfg, lanes, scene, state, effects)
-  new_wlk = walker_step(cfg, scene, state)
+    # all agents advance simultaneously (world.tick semantics)
+    with span("sim.dynamics"):
+      pos, yaw, speed = bicycle_step(state.ego.pos, state.ego.yaw,
+                                     state.ego.speed, control.steer,
+                                     control.throttle, control.brake,
+                                     cfg.sim)
+      new_ego = state.ego.replace(pos=pos, yaw=normalize_angle(yaw),
+                                  speed=speed)
+    with span("sim.traffic"):
+      new_veh = traffic_step(cfg, lanes, scene, state, effects)
+      new_wlk = walker_step(cfg, scene, state)
 
-  moved = state.replace(ego=new_ego, vehicles=new_veh, walkers=new_wlk,
-                        tick=state.tick + 1, **updates)
-  moved = moved.replace(criteria=criteria_step(cfg, maps, scene,
-                                               state.ego.pos, moved))
-  done = state.done | episode_done(cfg, moved)
-  # a finished episode keeps its whole state, scenario state included
-  return freeze_done(state.done, state, moved).replace(done=done)
+    with span("sim.criteria"):
+      moved = state.replace(ego=new_ego, vehicles=new_veh, walkers=new_wlk,
+                            tick=state.tick + 1, **updates)
+      moved = moved.replace(criteria=criteria_step(cfg, maps, scene,
+                                                   state.ego.pos, moved))
+      done = state.done | episode_done(cfg, moved)
+      # a finished episode keeps its whole state, scenario state included
+      return freeze_done(state.done, state, moved).replace(done=done)
 
 
 def rollout(cfg: GlobalConfig, maps: MapStack, lanes: LaneGraph,
@@ -192,7 +207,8 @@ def rollout_chunked(cfg: GlobalConfig, maps: MapStack, lanes: LaneGraph,
       state = rollout(cfg, maps, lanes, scene, state, chunk, policy,
                       generator=generator, draw_fn=draw_fn)
       ticks += chunk
-      all_done = bool(torch.all(state.done))     # the chunk's one host sync
+      with span("rollout.done_check"):
+        all_done = bool(torch.all(state.done))   # the chunk's one host sync
       if wd:
         wd.update()                      # re-arm once per completed chunk
       if all_done:

@@ -44,6 +44,7 @@ from carla_garage_tpu_torch.train.schedules import (SPEED_WEIGHTS,
                                                     init_log_vars,
                                                     uncertainty_weighted_total)
 from carla_garage_tpu_torch.train.transfuser_train import make_optimizer
+from carla_garage_tpu_torch.utils.profiling import span
 
 IGNORE_INDEX = -999
 FORECAST_FRAMES = 2       # 0.5 s at 4 Hz (config.py:544 forcast_time)
@@ -279,23 +280,31 @@ def make_train_step(model: PlanT, optimizer: torch.optim.Optimizer,
   mesh: data parallel over its ranks. The batch is the global one, as on
   one process; each rank takes its slice of the rows, the gradients are
   summed over the ranks before the step, and the aux losses returned are
-  the global ones."""
+  the global ones.
+
+  The step is the span ``train.step`` (``utils/profiling.py``) around
+  ``train.forward`` (the loss), ``train.backward`` and ``train.optimizer``
+  (the optimizer's and the scheduler's steps)."""
   params = [p for g in optimizer.param_groups for p in g["params"]]
 
   def train_step(batch):
-    optimizer.zero_grad(set_to_none=True)
-    if mesh is not None:
-      batch = mesh_lib.shard_leading(mesh, batch, batch["boxes"].shape[0])
-    loss, aux = plant_loss(model, batch, log_vars=log_vars,
-                           speed_weights=speed_weights, mesh=mesh)
-    loss.backward()
-    if mesh is not None:
-      mesh_lib.all_reduce_grads(mesh, params)
-      aux = mesh_lib.all_reduce_aux(mesh, aux)
-    optimizer.step()
-    if scheduler is not None:
-      scheduler.step()
-    return {k: v.detach() for k, v in aux.items()}
+    with span("train.step"):
+      optimizer.zero_grad(set_to_none=True)
+      if mesh is not None:
+        batch = mesh_lib.shard_leading(mesh, batch, batch["boxes"].shape[0])
+      with span("train.forward"):
+        loss, aux = plant_loss(model, batch, log_vars=log_vars,
+                               speed_weights=speed_weights, mesh=mesh)
+      with span("train.backward"):
+        loss.backward()
+      if mesh is not None:
+        mesh_lib.all_reduce_grads(mesh, params)
+        aux = mesh_lib.all_reduce_aux(mesh, aux)
+      with span("train.optimizer"):
+        optimizer.step()
+        if scheduler is not None:
+          scheduler.step()
+      return {k: v.detach() for k, v in aux.items()}
 
   return train_step
 

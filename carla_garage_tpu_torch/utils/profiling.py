@@ -1,53 +1,162 @@
-"""Profiling (port of carla_garage_tpu/utils/profiling.py).
+"""Profiling (port of carla_garage_tpu/utils/profiling.py) and the
+program's own spans.
 
 - ``trace(dir)``: a ``torch.profiler`` context over the host and the card
   that writes a Chrome trace (``trace.json``) into `dir`.
-- ``Throughput``: an env-steps/s counter, and its rate per card.
+- ``span(name)``: a named range around one of the program's layers
+  (``sim.tick``, ``agent.model``, ``train.backward``, ...). Spans are off
+  by default, and then a span costs one flag check: it allocates nothing,
+  opens no ``record_function`` and records no CUDA event. They are live
+  while the recorder is on (``record(True)``) or inside ``trace()``:
+  then, while a ``torch.profiler`` runs, each span opens a
+  ``record_function`` range ``cgt.<name>``, which the Chrome trace places
+  on the profiler's clock beside the operations and kernel launches made
+  inside it; and while the recorder is on, each span is kept in memory as
+  a ``Span`` (``recorded()``), until ``clear()``. Nothing is written to
+  disk. Spans are opened and closed on one thread.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import time
 
 import torch
 
+PREFIX = "cgt."          # the profiler's name of a span is PREFIX + name
+
+_live = False            # the one flag a span checks
+_recording = False
+_tracing = 0             # trace() contexts open
+_cuda = False            # record CUDA events (a card is present)
+_spans = []              # recorded spans, in the order they opened
+_stack = []              # the recorded spans open now, innermost last
+_ids = itertools.count(1)
+_OFF = contextlib.nullcontext()
+
+
+class Span:
+  """One recorded span. root is the id of the outermost recorded span
+  around it (itself for a root such as ``sim.tick`` or ``train.step``):
+  the spans of one tick or step share it. start_ns and end_ns are host
+  times on the profiler's clock (Unix time in ns, as the Chrome trace's
+  ``ts`` in us plus its ``baseTimeNanoseconds``); end_ns is None while
+  the span is open. events: CUDA events at both ends on the current
+  stream, on a card, else None."""
+
+  __slots__ = ("name", "id", "parent", "root", "start_ns", "end_ns",
+               "events")
+
+  def __init__(self, name: str, parent: "Span | None"):
+    self.name = name
+    self.id = next(_ids)
+    self.parent = None if parent is None else parent.id
+    self.root = self.id if parent is None else parent.root
+    self.start_ns = self.end_ns = None
+    self.events = None
+
+  def elapsed_ms(self) -> float:
+    """The span's duration: between its CUDA events (the stream's time,
+    read after the work is done), else on the host clock."""
+    if self.events is not None:
+      return self.events[0].elapsed_time(self.events[1])
+    return (self.end_ns - self.start_ns) * 1e-6
+
+
+class _Live:
+  """A live span: the profiler's range, the recorded Span, or both."""
+
+  __slots__ = ("name", "rec", "rng")
+
+  def __init__(self, name: str):
+    self.name = name
+    self.rec = self.rng = None
+
+  def __enter__(self):
+    if torch.autograd._profiler_enabled():
+      self.rng = torch.profiler.record_function(PREFIX + self.name)
+      self.rng.__enter__()
+    if _recording:
+      rec = self.rec = Span(self.name, _stack[-1] if _stack else None)
+      _spans.append(rec)
+      _stack.append(rec)
+      if _cuda:
+        rec.events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        rec.events[0].record()
+      rec.start_ns = time.time_ns()
+    return self
+
+  def __exit__(self, *exc):
+    rec = self.rec
+    if rec is not None:
+      rec.end_ns = time.time_ns()
+      if rec.events is not None:
+        rec.events[1].record()
+      _stack.remove(rec)
+    if self.rng is not None:
+      self.rng.__exit__(*exc)
+    return False
+
+
+def span(name: str):
+  """A context manager around one layer of the program (see the module's
+  docstring)."""
+  if not _live:
+    return _OFF
+  return _Live(name)
+
+
+def _update():
+  global _live
+  _live = _recording or _tracing > 0
+
+
+def record(on: bool = True):
+  """Turn the recorder on or off. Turning it on again changes nothing and
+  never drops what was recorded (``clear()`` does)."""
+  global _recording, _cuda
+  if on and not _recording:
+    _cuda = torch.cuda.is_available()
+  _recording = bool(on)
+  _update()
+
+
+def recording() -> bool:
+  return _recording
+
+
+def recorded() -> list:
+  """The recorded spans, in the order they opened."""
+  return list(_spans)
+
+
+def clear():
+  """Drop every recorded span."""
+  _spans.clear()
+
 
 @contextlib.contextmanager
 def trace(log_dir: str):
   """Profile the block (CPU, and CUDA when a card is present) and write
-  its Chrome trace to `log_dir`/trace.json. Yields the profiler."""
+  its Chrome trace to `log_dir`/trace.json, with the program's spans as
+  ``cgt.*`` ranges. Yields the profiler."""
+  global _tracing
   from torch.profiler import ProfilerActivity, profile
   acts = [ProfilerActivity.CPU]
   if torch.cuda.is_available():
     acts.append(ProfilerActivity.CUDA)
   os.makedirs(log_dir, exist_ok=True)
-  with profile(activities=acts) as prof:
-    yield prof
-    if torch.cuda.is_available():
-      torch.cuda.synchronize()
+  _tracing += 1
+  _update()
+  try:
+    with profile(activities=acts) as prof:
+      yield prof
+      if torch.cuda.is_available():
+        torch.cuda.synchronize()
+  finally:
+    _tracing -= 1
+    _update()
   prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class Throughput:
-  """Running env-steps/s counter. The caller synchronizes the card before
-  reading a rate."""
-
-  def __init__(self):
-    self.t0 = time.perf_counter()
-    self.steps = 0
-
-  def add(self, env_steps: int):
-    self.steps += env_steps
-
-  @property
-  def per_sec(self) -> float:
-    dt = time.perf_counter() - self.t0
-    return self.steps / dt if dt > 0 else 0.0
-
-  def per_chip(self) -> float:
-    """The rate of this process' card. A port process drives one card (a
-    data-parallel rank its own), whatever the host holds, so this is the
-    process' rate."""
-    return self.per_sec

@@ -25,6 +25,8 @@ CLOSED = {
     "ray_box": "only the dense fallback _cast_rays_dense calls it; "
                "raycast_boxes_plain fills that role",
     "voxelize_matmul": "a TPU-only form of voxelize (ported)",
+    "Throughput": "nothing of the port read it; the program's spans "
+                  "(utils/profiling.span) and the benchmark time the loop",
 }
 CLOSED_SCRIPTS = {
     "validate_signals.py": "needs the reference's OpenDRIVE annotations",

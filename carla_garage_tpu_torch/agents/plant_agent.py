@@ -35,6 +35,7 @@ from carla_garage_tpu_torch.sim.route_planner import planner_step
 from carla_garage_tpu_torch.structs import (LightState, PIDState,
                                             PlannerState, Scene, SimState,
                                             Struct)
+from carla_garage_tpu_torch.utils.cuda_graph import GraphedForward
 from carla_garage_tpu_torch.utils.profiling import span
 
 TARGET_SPEEDS = (0.0, 2.0, 5.0, 8.0)   # m/s of the target-speed classes
@@ -220,6 +221,7 @@ def make_plant_policy(model: PlanT, params, pcfg: PlanTConfig,
     model.load_state_dict(params)
   model = model.eval()
   dev = next(model.parameters()).device
+  forward = GraphedForward(model)     # a CUDA graph's replay on the card
   target_speeds = const(TARGET_SPEEDS, dev)
 
   @torch.no_grad()
@@ -248,8 +250,8 @@ def make_plant_policy(model: PlanT, params, pcfg: PlanTConfig,
           cfg, maps, scene, state, ag.cleared_stop_signs, pl_dense.idx)
 
     with span("agent.model"):
-      out = model(boxes, box_types, route_tok, light, stop, junction,
-                  ego.speed)
+      out = forward(boxes, box_types, route_tok, light, stop, junction,
+                    ego.speed)
 
     with span("agent.control"):
       if direct:

@@ -52,6 +52,7 @@ from carla_garage_tpu_torch.sim.ukf import (UKFState, ukf_predict, ukf_reset,
                                             ukf_update)
 from carla_garage_tpu_torch.structs import (PIDState, PlannerState, Scene,
                                             SimState, Struct, tree_map)
+from carla_garage_tpu_torch.utils.cuda_graph import GraphedForward
 from carla_garage_tpu_torch.utils.profiling import span
 
 GNSS_NOISE_M = 0.55          # 5e-6 deg lat/lon stddev * earth scale
@@ -161,7 +162,10 @@ def make_transfuser_policy(model: LidarCenterNet, params,
   camera at that libjpeg quality (sensor_agent.py:277-279; cv2's default
   is 95)."""
   dev = next(model.parameters()).device
-  members = _members(model, params, bf16)
+  # on the card each member's forward replays as a CUDA graph; the bf16
+  # path's casts make new tensors of its outputs
+  members = [GraphedForward(m, copy_outputs=not bf16)
+             for m in _members(model, params, bf16)]
   cam_grid = torch.as_tensor(camera_grid, device=dev)
   g_front = torch.as_tensor(lidar_grid_front, device=dev).reshape(-1, 3)
   g_rear = torch.as_tensor(lidar_grid_rear, device=dev).reshape(-1, 3)
@@ -173,7 +177,7 @@ def make_transfuser_policy(model: LidarCenterNet, params,
     cast = lambda x: x.to(torch.bfloat16)
     out = m(cast(rgb), cast(lidar_bev), cast(target_point), cast(cmd_oh),
             cast(speed))
-    return tree_map(lambda x: x.to(torch.float32), out)
+    return tree_map(lambda x: x.to(torch.float32, copy=True), out)
 
   @torch.no_grad()
   def policy(cfg: GlobalConfig, maps, scene: Scene, state: SimState,

@@ -16,6 +16,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
+from carla_garage_tpu_torch.device import const
 from carla_garage_tpu_torch.models.backbones import (AffineNorm,
                                                      RegNetYStage,
                                                      RegNetYStem, arch_spec,
@@ -108,11 +109,10 @@ class TransfuserBackbone(nn.Module):
   def forward(self, rgb, lidar_bev):
     c = self.cfg
     if c.normalize_imagenet:
-      mean = torch.tensor([0.485, 0.456, 0.406], dtype=rgb.dtype,
-                          device=rgb.device)[:, None, None]
-      std = torch.tensor([0.229, 0.224, 0.225], dtype=rgb.dtype,
-                         device=rgb.device)[:, None, None]
-      rgb = (rgb / 255.0 - mean) / std
+      # cached on the device: no copy from the host inside a CUDA graph
+      mean = const([0.485, 0.456, 0.406], rgb.device, rgb.dtype)
+      std = const([0.229, 0.224, 0.225], rgb.device, rgb.dtype)
+      rgb = (rgb / 255.0 - mean[:, None, None]) / std[:, None, None]
     img = self.image_stem(rgb)
     lid = self.lidar_stem(lidar_bev)
     for i in range(4):

@@ -1,4 +1,6 @@
-"""On-card tests of the port's CUDA kernels against their plain versions.
+"""On-card tests of the port's CUDA kernels against their plain versions,
+and of the models' forwards replayed as CUDA graphs
+(``utils/cuda_graph.GraphedForward``) against their eager forwards.
 
 They need an NVIDIA card with nvcc (Hopper, sm_90a) and skip elsewhere.
 This file imports no JAX, so it runs on a machine without it:
@@ -8,16 +10,22 @@ This file imports no JAX, so it runs on a machine without it:
 (--noconftest because tests/conftest.py configures JAX.)
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from carla_garage_tpu_torch.models import transfuser as ttf
+from carla_garage_tpu_torch.models.plant import PlanT, PlanTConfig
 from carla_garage_tpu_torch.ops import kernel_cases
 from carla_garage_tpu_torch.ops.bev_fill import (fill_boxes,
                                                  fill_boxes_bev_plain,
                                                  pack_boxes)
 from carla_garage_tpu_torch.ops.raycast import (raycast_boxes,
                                                 raycast_boxes_plain)
+from carla_garage_tpu_torch.structs import tree_items, tree_map
+from carla_garage_tpu_torch.utils import cuda_graph, profiling
 
 
 @pytest.fixture
@@ -168,3 +176,156 @@ def test_fill_kernel_rejects_bad_input(cuda):
     fill_boxes(bx.transpose(0, 1).contiguous().transpose(0, 1), 8, 8)
   with pytest.raises(ValueError):
     fill_boxes(bx, 0, 8)
+
+
+# --- the forward as a CUDA graph ------------------------------------------
+
+GRAPH_B = 2
+GRAPH_PCFG = PlanTConfig(hidden=64, n_layers=2, n_heads=2, intermediate=256,
+                         max_positions=64, max_objects=10,
+                         num_route_points=6)
+
+
+def graph_model(kind, dev):
+  """(module on the card in eval mode, inputs(seed, batch)): the micro
+  TransFuser++ in float32 ("tfpp"), in bfloat16 ("tfpp_bf16"), with the
+  ImageNet normalisation ("tfpp_imagenet"), or the micro PlanT."""
+  torch.manual_seed(0)
+  if kind == "plant":
+    c = GRAPH_PCFG
+
+    def inputs(seed, b=GRAPH_B):
+      g = torch.Generator().manual_seed(seed)
+      O, R = c.max_objects, c.num_route_points
+      x = (torch.randn(b, O, 7, generator=g),
+           torch.randint(0, 4, (b, O), generator=g, dtype=torch.int32),
+           torch.randn(b, R, 2, generator=g),
+           torch.randint(0, 2, (b,), generator=g).float(), torch.zeros(b),
+           torch.ones(b), torch.rand(b, generator=g) * 8)
+      return tuple(t.to(dev) for t in x)
+    return PlanT(c).to(dev).eval(), inputs
+  c = dataclasses.replace(ttf.micro_config(),
+                          normalize_imagenet=kind == "tfpp_imagenet")
+  dt = torch.bfloat16 if kind == "tfpp_bf16" else torch.float32
+
+  def inputs(seed, b=GRAPH_B):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.rand(b, c.img_h, c.img_w, 3, generator=g) * 255,
+         torch.rand(b, c.lidar_h, c.lidar_w, c.lidar_channels, generator=g),
+         torch.randn(b, 2, generator=g) * 10,
+         torch.eye(6)[torch.randint(0, 6, (b,), generator=g)],
+         torch.rand(b, generator=g) * 8)
+    return tuple(t.to(dev, dt) for t in x)
+  return ttf.LidarCenterNet(c).to(dev, dt).eval(), inputs
+
+
+def rel_gap(a, b):
+  """The largest relative difference over the outputs' tensors (each: the
+  largest difference over the largest value)."""
+  la, lb = list(tree_items(a)), list(tree_items(b))
+  assert la and [k for k, _ in la] == [k for k, _ in lb]
+  worst = 0.0
+  for (k, x), (_, y) in zip(la, lb):
+    assert x.dtype == y.dtype and x.shape == y.shape, k
+    x, y = x.float(), y.float()
+    worst = max(worst, float((x - y).abs().max() /
+                             y.abs().max().clamp(min=1e-30)))
+  return worst
+
+
+def count_captures(monkeypatch):
+  n = [0]
+  real = cuda_graph._Graph
+
+  def counted(*a, **kw):
+    n[0] += 1
+    return real(*a, **kw)
+  monkeypatch.setattr(cuda_graph, "_Graph", counted)
+  return n
+
+
+@pytest.mark.parametrize("kind", ["tfpp", "tfpp_bf16", "tfpp_imagenet",
+                                  "plant"])
+def test_graph_replays_the_eager_forward(cuda, kind, monkeypatch):
+  """Three calls with fresh inputs: one capture; the outputs equal the
+  eager forward's (float32 within 1e-6 relative, bf16 within the eager
+  forward's own run-to-run spread); the hook fires once a call, never in
+  warm-up or capture, with the call's inputs and outputs; and a call's
+  outputs survive the next replay."""
+  m, inputs = graph_model(kind, cuda)
+  seen = []
+  clone = lambda t: tree_map(torch.clone, t)
+  m.register_forward_hook(
+      lambda mod, args, out: seen.append((clone(args), clone(out))))
+  captures = count_captures(monkeypatch)
+  g = cuda_graph.GraphedForward(m)
+  with torch.no_grad():
+    eager = [m.forward(*inputs(k)) for k in range(3)]
+    again = [m.forward(*inputs(k)) for k in range(3)]
+    outs, kept = [], []
+    for k in range(3):
+      outs.append(g(*inputs(k)))
+      kept.append(clone(outs[-1]))
+      assert len(seen) == k + 1
+  torch.cuda.synchronize()
+  assert captures[0] == 1 and len(g.graphs) == 1
+  spread = max(rel_gap(a, b) for a, b in zip(again, eager))
+  tol = 1e-6 if kind != "tfpp_bf16" else spread
+  for k in range(3):
+    assert rel_gap(outs[k], eager[k]) <= tol, (k, spread)
+    assert rel_gap(outs[k], kept[k]) == 0.0          # untouched since
+    args, out = seen[k]
+    assert all(torch.equal(a, b) for a, b in zip(args, inputs(k)))
+    assert rel_gap(out, outs[k]) == 0.0
+  assert "forward" not in m.__dict__
+
+
+def test_graph_follows_weights_shapes_and_storage(cuda, monkeypatch):
+  """An in-place weight update shows in the next replay without a new
+  capture; a new batch size captures once more; a parameter whose storage
+  was replaced drops the graphs and captures again."""
+  m, inputs = graph_model("plant", cuda)
+  captures = count_captures(monkeypatch)
+  g = cuda_graph.GraphedForward(m)
+  x = inputs(0)
+  with torch.no_grad():
+    g(*x)
+    m.target_speed_head.weight.mul_(1.5)
+    assert rel_gap(g(*x), m.forward(*x)) <= 1e-6
+    assert captures[0] == 1
+    y = inputs(1, b=GRAPH_B + 1)
+    assert rel_gap(g(*y), m.forward(*y)) <= 1e-6
+    assert captures[0] == 2 and len(g.graphs) == 2
+    assert rel_gap(g(*x), m.forward(*x)) <= 1e-6
+    assert captures[0] == 2
+    w = m.target_speed_head.weight
+    w.data = w.data * -2.0
+    assert rel_gap(g(*x), m.forward(*x)) <= 1e-6
+    assert captures[0] == 3 and len(g.graphs) == 1
+  with torch.enable_grad():
+    out = g(*x)
+  assert out["pred_wp"].requires_grad and captures[0] == 3
+
+
+def test_graph_spans(cuda):
+  """``graph.capture`` once, outside the replay; ``graph.replay`` once a
+  call; both timed by CUDA events outside the capture."""
+  m, inputs = graph_model("plant", cuda)
+  g = cuda_graph.GraphedForward(m)
+  profiling.record(True)
+  try:
+    with torch.no_grad():
+      for k in range(3):
+        with profiling.span("agent.model"):
+          g(*inputs(k))
+    torch.cuda.synchronize()
+    spans = profiling.recorded()
+  finally:
+    profiling.record(False)
+    profiling.clear()
+  names = [s.name for s in spans]
+  assert names.count("graph.capture") == 1
+  assert names.count("graph.replay") == 3
+  models = {s.id for s in spans if s.name == "agent.model"}
+  assert all(s.parent in models for s in spans if s.name.startswith("graph."))
+  assert all(s.elapsed_ms() >= 0 for s in spans)

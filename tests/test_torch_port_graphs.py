@@ -1,0 +1,199 @@
+"""The forward's CUDA graph (``utils/cuda_graph.py``) where there is no
+card: ``GraphedForward`` calls the module eagerly.
+
+* Its outputs equal ``module.forward``'s bit for bit, and it constructs
+  no CUDA graph, stream or event (all three patched to raise).
+* A forward hook on the module fires once per call with that call's
+  inputs and outputs.
+* Under ``torch.enable_grad()`` it stays eager and autograd reaches the
+  parameters.
+* The sensor policy (float32, bf16 and a two-member ensemble) and the
+  PlanT policy, which call their models through it, step the micro scene
+  bit-equal to the same policies with the models called directly.
+
+The replay itself runs only on a card: ``tests/test_torch_port_cuda.py``.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from carla_garage_tpu_torch.agents import plant_agent as pa
+from carla_garage_tpu_torch.agents import sensor_agent as sa
+from carla_garage_tpu_torch.config import DEFAULT_CONFIG as CFG
+from carla_garage_tpu_torch.models import transfuser as ttf
+from carla_garage_tpu_torch.models.plant import PlanT, PlanTConfig
+from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
+from carla_garage_tpu_torch.sensors.lidar import lidar_ray_grid
+from carla_garage_tpu_torch.sim.episode import sim_step
+from carla_garage_tpu_torch.sim.scene_builder import make_town_batch
+from carla_garage_tpu_torch.structs import tree_items
+from carla_garage_tpu_torch.utils import cuda_graph
+from carla_garage_tpu_torch.utils.cuda_graph import GraphedForward
+
+B = 2
+PCFG = PlanTConfig(hidden=64, n_layers=2, n_heads=2, intermediate=256,
+                   max_positions=64, max_objects=10, num_route_points=6)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+  n = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(n)
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+  """Constructing a CUDA graph, stream or event raises."""
+  def refuse(*a, **kw):
+    raise AssertionError("CUDA graph machinery used on the CPU")
+  for name in ("CUDAGraph", "graph", "Stream", "Event"):
+    monkeypatch.setattr(torch.cuda, name, refuse)
+
+
+def _equal_trees(a, b):
+  la, lb = list(tree_items(a)), list(tree_items(b))
+  assert la and [k for k, _ in la] == [k for k, _ in lb]
+  for (k, x), (_, y) in zip(la, lb):
+    assert x.dtype == y.dtype and torch.equal(x, y), k
+
+
+def _model(kind: str):
+  """(module, a function of a seed that makes its inputs)."""
+  torch.manual_seed(0)
+  if kind == "plant":
+    def inputs(seed):
+      g = torch.Generator().manual_seed(seed)
+      O, R = PCFG.max_objects, PCFG.num_route_points
+      return (torch.randn(B, O, 7, generator=g),
+              torch.randint(0, 4, (B, O), generator=g, dtype=torch.int32),
+              torch.randn(B, R, 2, generator=g),
+              torch.randint(0, 2, (B,), generator=g).float(),
+              torch.zeros(B), torch.ones(B),
+              torch.rand(B, generator=g) * 8)
+    return PlanT(PCFG).eval(), inputs
+  c = ttf.micro_config()
+
+  def inputs(seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(B, c.img_h, c.img_w, 3, generator=g) * 255,
+            torch.rand(B, c.lidar_h, c.lidar_w, c.lidar_channels,
+                       generator=g),
+            torch.randn(B, 2, generator=g) * 10,
+            torch.eye(6)[torch.randint(0, 6, (B,), generator=g)],
+            torch.rand(B, generator=g) * 8)
+  return ttf.LidarCenterNet(c).eval(), inputs
+
+
+@pytest.mark.parametrize("kind", ["plant", "tfpp"])
+def test_eager_on_the_cpu_bit_equal_to_forward(kind, no_cuda):
+  m, inputs = _model(kind)
+  g = GraphedForward(m)
+  with torch.no_grad():
+    for seed in range(2):
+      x = inputs(seed)
+      _equal_trees(g(*x), m.forward(*x))
+  assert g.graphs == {}
+  assert "forward" not in m.__dict__
+
+
+@pytest.mark.parametrize("kind", ["plant", "tfpp"])
+def test_a_forward_hook_fires_once_a_call(kind, no_cuda):
+  m, inputs = _model(kind)
+  seen = []
+  m.register_forward_hook(lambda mod, args, out: seen.append((args, out)))
+  g = GraphedForward(m)
+  with torch.no_grad():
+    for seed in range(3):
+      x = inputs(seed)
+      out = g(*x)
+      assert len(seen) == seed + 1
+      args, hooked = seen[-1]
+      assert len(args) == len(x)
+      assert all(a is b for a, b in zip(args, x))
+      assert hooked is out
+  assert g.graphs == {}
+
+
+def test_grad_mode_stays_eager_with_autograd(no_cuda):
+  m, inputs = _model("plant")
+  x = inputs(0)
+  with torch.enable_grad():
+    out = GraphedForward(m)(*x)
+    loss = out["pred_wp"].square().sum()
+    loss.backward()
+  got = [p.grad.clone() for p in m.parameters() if p.grad is not None]
+  m.zero_grad()
+  with torch.enable_grad():
+    m.forward(*x)["pred_wp"].square().sum().backward()
+  want = [p.grad for p in m.parameters() if p.grad is not None]
+  assert got and len(got) == len(want)
+  assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_signature_refuses_what_it_cannot_key():
+  """Tensors on the CPU and arguments that are neither tensors nor plain
+  scalars leave the call eager (no signature)."""
+  assert cuda_graph._signature((torch.zeros(2),), {}) is None
+  assert cuda_graph._signature((1, [2]), {}) is None
+  assert cuda_graph._signature((), {"x": (torch.zeros(1),)}) is None
+  key, tensors = cuda_graph._signature((1, None), {"b": 2.0, "a": "s"})
+  assert tensors == []
+  assert key[:4] == ((0, int, 1), (1, type(None), None),
+                     ("a", str, "s"), ("b", float, 2.0))
+
+
+@pytest.fixture(scope="module")
+def scene():
+  _, maps, lanes, scene, state = make_town_batch(
+      CFG, "synth", batch=B, seed=0, n_vehicles=8, n_walkers=2,
+      use_scenarios=True, device="cpu")
+  return maps, lanes, scene, state
+
+
+def _policy(kind: str, state):
+  """(policy, state with its agent) at the tests' small sizes."""
+  torch.manual_seed(0)
+  if kind == "plant":
+    policy = pa.make_plant_policy(PlanT(PCFG), None, PCFG, direct=True)
+    return policy, state.replace(agent=pa.plant_agent_reset(CFG, B,
+                                                            device="cpu"))
+  c = dataclasses.replace(ttf.micro_config(), img_h=32, img_w=128,
+                          lidar_h=256, lidar_w=256, img_anchors=(1, 4),
+                          lidar_anchors=(8, 8))
+  lid_f = lidar_ray_grid(CFG, half=0, decimate=16)
+  lid_r = lidar_ray_grid(CFG, half=1, decimate=16)
+  model = ttf.LidarCenterNet(c)
+  params = None
+  if kind == "tfpp_ensemble":
+    params = [model.state_dict(), ttf.LidarCenterNet(c).state_dict()]
+  policy = sa.make_transfuser_policy(
+      model, params, c, camera_ray_grid(CFG, scale=8), lid_f, lid_r,
+      direct=True, bf16=kind == "tfpp_bf16")
+  n_lidar = lid_f.shape[0] * lid_f.shape[1]
+  return policy, state.replace(agent=sa.sensor_agent_reset(
+      CFG, B, n_lidar, device="cpu"))
+
+
+def _ticks(scene, kind: str, n: int = 2):
+  maps, lanes, scn, state = scene
+  policy, st = _policy(kind, state)
+  gen = torch.Generator().manual_seed(7)
+  for _ in range(n):
+    st = sim_step(CFG, maps, lanes, scn, st, policy, generator=gen)
+  return st
+
+
+@pytest.mark.parametrize("kind", ["plant", "tfpp", "tfpp_bf16",
+                                  "tfpp_ensemble"])
+def test_policies_unchanged_by_the_wrapper(scene, kind, monkeypatch,
+                                           no_cuda):
+  wrapped = _ticks(scene, kind)
+  with monkeypatch.context() as mp:
+    for mod in (pa, sa):
+      mp.setattr(mod, "GraphedForward", lambda m, copy_outputs=True: m)
+    direct = _ticks(scene, kind)
+  _equal_trees(wrapped, direct)

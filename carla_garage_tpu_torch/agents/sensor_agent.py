@@ -6,8 +6,11 @@ Per tick: noisy GNSS and compass -> UKF predict/update -> route planners
 sweep -> voxelize -> model forward -> PID control, plus the stuck/creep
 recovery with its LiDAR safety box. The spans of a tick
 (``utils/profiling.py``): ``agent.localize`` (GNSS, compass, UKF, route
-planners), ``agent.inputs`` (camera, LiDAR, realignment, voxelize),
-``agent.model`` (the forward with its casts and the ensemble's mean) and
+planners), ``agent.inputs`` (camera, LiDAR, realignment, voxelize;
+inside it, with more than one buffered sweep, ``agent.lidar_history``, the
+buffer's realignment and the older sweeps' voxelization, counting the
+frames voxelized), ``agent.model``
+(the forward with its casts and the ensemble's mean) and
 ``agent.control``.
 
 The three random draws of a tick (GNSS noise, compass noise, LiDAR
@@ -26,6 +29,7 @@ controller (``stop_control``, the LAV point).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 
@@ -84,8 +88,8 @@ class SensorAgentState(Struct):
 
 def sensor_agent_reset(cfg: GlobalConfig, B: int, n_lidar: int,
                        seq_len: int = 1, device="cuda") -> SensorAgentState:
-  """seq_len > 1 keeps that many past half sweeps (the model then takes
-  ``lidar_channels = 2 * seq_len``)."""
+  """seq_len > 1 keeps that many past half sweeps, as the model takes them
+  (``models.transfuser.lidar_history``)."""
   dev = resolve_device(device)
   K = max(seq_len, 1)
 
@@ -109,6 +113,20 @@ def sensor_agent_reset(cfg: GlobalConfig, B: int, n_lidar: int,
       stop_box=torch.zeros((B, 5), device=dev),
       stop_box_valid=torch.zeros((B,), dtype=torch.bool, device=dev),
       clear_stop=zi.clone())
+
+
+def voxelize_older(points: torch.Tensor, valid: torch.Tensor,
+                   cfg: GlobalConfig):
+  """The buffer's older half sweeps (all but the newest) as channel pairs,
+  oldest last: points [B,K,N,3], valid [B,K,N] -> [B,2(K-1),H,W] in one
+  voxelization over the merged B(K-1) axis, bit-equal to one call a sweep
+  (the histogram's counts are exact); None for K = 1."""
+  B, K, N, _ = points.shape
+  if K == 1:
+    return None
+  bev = voxelize(points[:, 1:].reshape(B * (K - 1), N, 3),
+                 valid[:, 1:].reshape(B * (K - 1), N), cfg)
+  return bev.reshape(B, 2 * (K - 1), *bev.shape[2:])
 
 
 def command_onehot(cmd: torch.Tensor) -> torch.Tensor:
@@ -230,23 +248,25 @@ def make_transfuser_policy(model: LidarCenterNet, params,
       pts_now, val_now = render_lidar(cfg, maps, scene, state, grid_sel,
                                       uniform=draws.get("lidar"),
                                       per_episode=True, generator=generator)
-      # realign the buffered half sweeps into the current ego frame
       K = ag.prev_lidar.shape[1]
-      prev_pts_world = geo.ego_to_world(ag.prev_lidar[..., :2],
-                                        ag.prev_pose[:, :, None, :2],
-                                        ag.prev_pose[:, :, 2][:, :, None])
-      prev_in_cur = geo.world_to_ego(prev_pts_world, pos_f[:, None, None],
-                                     yaw_f[:, None, None])
-      prev_pts = torch.cat([prev_in_cur, ag.prev_lidar[..., 2:]], -1)
+      history = span("agent.lidar_history", count=B * (K - 1)) if K > 1 \
+          else contextlib.nullcontext()
+      with history:
+        # realign the buffered half sweeps into the current ego frame
+        prev_pts_world = geo.ego_to_world(ag.prev_lidar[..., :2],
+                                          ag.prev_pose[:, :, None, :2],
+                                          ag.prev_pose[:, :, 2][:, :, None])
+        prev_in_cur = geo.world_to_ego(prev_pts_world, pos_f[:, None, None],
+                                       yaw_f[:, None, None])
+        prev_pts = torch.cat([prev_in_cur, ag.prev_lidar[..., 2:]], -1)
+        older = voxelize_older(prev_pts, ag.prev_lidar_valid, cfg)
       merged_pts = torch.cat([pts_now, prev_pts[:, 0]], 1)
       merged_val = torch.cat([val_now, ag.prev_lidar_valid[:, 0]], 1)
       lidar_bev = voxelize(merged_pts, merged_val, cfg)
       # the newest buffered sweep merges with the live one; older sweeps
       # voxelize into extra channel pairs
-      if K > 1:
-        lidar_bev = torch.cat([lidar_bev] + [
-            voxelize(prev_pts[:, k], ag.prev_lidar_valid[:, k], cfg)
-            for k in range(1, K)], 1)
+      if older is not None:
+        lidar_bev = torch.cat([lidar_bev, older], 1)
       lidar_bev = lidar_bev.permute(0, 2, 3, 1)
 
     with span("agent.model"):

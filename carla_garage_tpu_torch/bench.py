@@ -108,7 +108,8 @@ def _sensor_setup(full_spec: bool, batch: int | None, dev: torch.device):
   from carla_garage_tpu_torch.agents.sensor_agent import (
       make_transfuser_policy, sensor_agent_reset)
   from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
-                                                        TransfuserConfig)
+                                                        TransfuserConfig,
+                                                        lidar_history)
   from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
   from carla_garage_tpu_torch.sensors.lidar import lidar_ray_grid
   from carla_garage_tpu_torch.sim.scene_builder import make_synthetic_batch
@@ -130,8 +131,8 @@ def _sensor_setup(full_spec: bool, batch: int | None, dev: torch.device):
   _, maps, lanes, scene, state = make_synthetic_batch(
       cfg, batch=B, seed=0, n_vehicles=100, n_walkers=2, device=dev)
   n_lidar = lid_f.shape[0] * lid_f.shape[1]
-  state = state.replace(agent=sensor_agent_reset(cfg, B, n_lidar,
-                                                 device=dev))
+  state = state.replace(agent=sensor_agent_reset(
+      cfg, B, n_lidar, seq_len=lidar_history(tcfg), device=dev))
   policy = make_transfuser_policy(model, None, tcfg, cam, lid_f, lid_r,
                                   direct=True, bf16=True)
   return types.SimpleNamespace(cfg=cfg, tcfg=tcfg, model=model,

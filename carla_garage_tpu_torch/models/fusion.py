@@ -119,7 +119,9 @@ class FusionStage(nn.Module):
     B, C, H, W = x.shape
     return x.reshape(B, C, oh, H // oh, ow, W // ow).mean((3, 5))
 
-  def forward(self, img_feat, lidar_feat):
+  def residuals(self, img_feat, lidar_feat):
+    """(image, LiDAR) residuals at the maps' sizes, which ``forward``
+    adds to its inputs."""
     B, Ci, Hi, Wi = img_feat.shape
     _, Cl, Hl, Wl = lidar_feat.shape
     ih, iw = self.img_anchors
@@ -130,6 +132,9 @@ class FusionStage(nn.Module):
                                 lid_t.flatten(2).transpose(1, 2))
     img_up = img_tok.transpose(1, 2).reshape(B, Ci, ih, iw)
     lid_up = self.img_to_lidar(lid_tok.transpose(1, 2).reshape(B, Ci, lh, lw))
-    img_up = upsample_bilinear(img_up, (Hi, Wi))
-    lid_up = upsample_bilinear(lid_up, (Hl, Wl))
+    return (upsample_bilinear(img_up, (Hi, Wi)),
+            upsample_bilinear(lid_up, (Hl, Wl)))
+
+  def forward(self, img_feat, lidar_feat):
+    img_up, lid_up = self.residuals(img_feat, lidar_feat)
     return img_feat + img_up, lidar_feat + lid_up

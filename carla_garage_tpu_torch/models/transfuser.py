@@ -6,6 +6,14 @@ top-down path to the BEV grid, a transformer-decoder join producing the
 checkpoint / target-speed queries, and the auxiliary heads (perspective
 semantics + depth, BEV semantics, CenterNet detection). Inputs and outputs
 are NHWC like the JAX model's; the convolutions run NCHW inside.
+
+With ``lidar_arch="video_swin_t"`` (a ``VideoTransfuserConfig``, beyond
+the JAX package) the LiDAR branch is the published Video Swin over
+``lidar_seq_len`` frames in place of the RegNetY stem and stages. Each
+fusion takes the Swin stage's time mean and its LiDAR residual is added
+back at every time step before the next stage; the stride-32 map is the
+time mean after the last fusion. The Swin stages run inside the span
+``model.lidar_video``.
 """
 
 from __future__ import annotations
@@ -27,6 +35,10 @@ from carla_garage_tpu_torch.models.layers import Linear
 from carla_garage_tpu_torch.models.heads import (
     CenterNetHead, GRUWaypointsPredictorInterFuser, PerspectiveDecoder,
     TransformerDecoderJoin, sine_position_embedding)
+from carla_garage_tpu_torch.models.video_nets import VideoSwin
+from carla_garage_tpu_torch.utils.profiling import span
+
+VIDEO_SWIN = "video_swin_t"     # the lidar_arch of the Video Swin branch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +80,58 @@ class TransfuserConfig:
   detect_boxes: bool = True
 
 
+@dataclasses.dataclass(frozen=True)
+class VideoTransfuserConfig(TransfuserConfig):
+  """A TransfuserConfig with a temporal LiDAR branch: lidar_seq_len frames
+  of lidar_channels each (the LiDAR input [B,H,W,lidar_channels *
+  lidar_seq_len] holds them newest first, as the sensor agent's buffer
+  voxelizes them), encoded by the published Video Swin at the swin_*
+  sizes (Video Swin-T's by default; the patch and MLP ratio are the
+  published block's own). A class of its own: the JAX
+  package's TransfuserConfig, which checkpoints' meta and the parity tests
+  compare field for field, has none of these fields."""
+  lidar_arch: str = "video_swin_t"
+  lidar_seq_len: int = 16
+  swin_embed_dim: int = 96
+  swin_depths: tuple = (2, 2, 6, 2)
+  swin_heads: tuple = (3, 6, 12, 24)
+  swin_window: tuple = (8, 7, 7)
+
+
+def lidar_widths(c: TransfuserConfig) -> tuple:
+  """The LiDAR branch's 4 stage widths."""
+  if c.lidar_arch != VIDEO_SWIN:
+    return tuple(arch_spec(c.lidar_arch)["widths"])
+  if not isinstance(c, VideoTransfuserConfig):
+    raise ValueError(f"lidar_arch {c.lidar_arch} takes a "
+                     "VideoTransfuserConfig")
+  return tuple(c.swin_embed_dim * 2 ** i for i in range(4))
+
+
+def lidar_history(c: TransfuserConfig) -> int:
+  """The half sweeps a sensor agent keeps for this model
+  (``sensor_agent_reset(..., seq_len=)``): ``lidar_seq_len`` for a video
+  branch, else one a channel pair of the LiDAR input."""
+  if c.lidar_arch == VIDEO_SWIN:
+    return c.lidar_seq_len
+  return max(c.lidar_channels // 2, 1)
+
+
+def video_frames(lidar_bev: torch.Tensor, c: TransfuserConfig
+                 ) -> torch.Tensor:
+  """The LiDAR input's channel groups as frames: [B, lidar_seq_len *
+  lidar_channels, H, W], newest first -> [B, lidar_channels,
+  lidar_seq_len, H, W], oldest first."""
+  B, CK, H, W = lidar_bev.shape
+  if CK != c.lidar_channels * c.lidar_seq_len:
+    raise ValueError(
+        f"the LiDAR input has {CK} channels, the video branch takes "
+        f"{c.lidar_channels} for each of {c.lidar_seq_len} frames: reset "
+        "the sensor agent with seq_len=lidar_history(config)")
+  x = lidar_bev.reshape(B, c.lidar_seq_len, c.lidar_channels, H, W)
+  return x.flip(1).transpose(1, 2)
+
+
 def micro_config() -> TransfuserConfig:
   """Small config for tests."""
   return TransfuserConfig(image_arch="regnety_micro",
@@ -86,18 +150,27 @@ class TransfuserBackbone(nn.Module):
   def __init__(self, c: TransfuserConfig, norm: str = "gn"):
     super().__init__()
     self.cfg = c
-    ispec, lspec = arch_spec(c.image_arch), arch_spec(c.lidar_arch)
+    self.video = c.lidar_arch == VIDEO_SWIN
+    ispec, widths = arch_spec(c.image_arch), lidar_widths(c)
     self.image_stem = RegNetYStem(3, ispec["stem_w"], norm)
-    self.lidar_stem = RegNetYStem(c.lidar_channels, lspec["stem_w"], norm)
-    wi, wl = ispec["stem_w"], lspec["stem_w"]
+    if self.video:
+      self.lidar_video = VideoSwin(
+          c.swin_embed_dim, c.swin_depths, c.swin_heads, c.swin_window,
+          c.lidar_channels, (c.lidar_seq_len, c.lidar_h, c.lidar_w))
+    else:
+      lspec = arch_spec(c.lidar_arch)
+      self.lidar_stem = RegNetYStem(c.lidar_channels, lspec["stem_w"], norm)
+      wl = lspec["stem_w"]
+    wi = ispec["stem_w"]
     for i in range(4):
       self.add_module(f"image_stage{i}", RegNetYStage(
           wi, ispec["depths"][i], ispec["widths"][i], ispec["group_w"],
           ispec["se_ratio"], norm))
-      self.add_module(f"lidar_stage{i}", RegNetYStage(
-          wl, lspec["depths"][i], lspec["widths"][i], lspec["group_w"],
-          lspec["se_ratio"], norm))
-      wi, wl = ispec["widths"][i], lspec["widths"][i]
+      if not self.video:
+        self.add_module(f"lidar_stage{i}", RegNetYStage(
+            wl, lspec["depths"][i], widths[i], lspec["group_w"],
+            lspec["se_ratio"], norm))
+      wi, wl = ispec["widths"][i], widths[i]
       self.add_module(f"fusion{i}", FusionStage(
           wi, wl, c.img_anchors, c.lidar_anchors, c.n_head,
           c.n_fusion_layers))
@@ -114,11 +187,14 @@ class TransfuserBackbone(nn.Module):
       std = const([0.229, 0.224, 0.225], rgb.device, rgb.dtype)
       rgb = (rgb / 255.0 - mean[:, None, None]) / std[:, None, None]
     img = self.image_stem(rgb)
-    lid = self.lidar_stem(lidar_bev)
-    for i in range(4):
-      img = getattr(self, f"image_stage{i}")(img)
-      lid = getattr(self, f"lidar_stage{i}")(lid)
-      img, lid = getattr(self, f"fusion{i}")(img, lid)
+    if self.video:
+      img, lid = self._video_stages(img, lidar_bev)
+    else:
+      lid = self.lidar_stem(lidar_bev)
+      for i in range(4):
+        img = getattr(self, f"image_stage{i}")(img)
+        lid = getattr(self, f"lidar_stage{i}")(lid)
+        img, lid = getattr(self, f"fusion{i}")(img, lid)
     Hl32, Wl32 = lid.shape[-2:]
     p5 = torch.relu(self.c5_conv(lid))
     p4 = torch.relu(self.up_conv5(upsample_bilinear(p5, (Hl32 * 2,
@@ -126,6 +202,25 @@ class TransfuserBackbone(nn.Module):
     p4u = upsample_bilinear(p4, (c.lidar_h // 4, c.lidar_w // 4))
     bev_grid = torch.relu(self.up_conv4(p4u))
     return img, bev_grid, lid
+
+  def _video_stages(self, img, lidar_bev):
+    """The image stages and the Swin stages with the fusion between them:
+    each fusion sees the stage's time mean, and its LiDAR residual goes
+    back into every frame. Returns (image map, the LiDAR time mean after
+    the last fusion), NCHW."""
+    swin = self.lidar_video
+    with span("model.lidar_video"):
+      h = swin.embed(video_frames(lidar_bev, self.cfg))
+    for i in range(4):
+      img = getattr(self, f"image_stage{i}")(img)
+      with span("model.lidar_video"):
+        if i > 0:
+          h = h + lid_up.permute(0, 2, 3, 1)[:, None]
+        h = swin.stage(i, h)
+        mean = h.mean(1).permute(0, 3, 1, 2)
+      img_up, lid_up = getattr(self, f"fusion{i}").residuals(img, mean)
+      img = img + img_up
+    return img, mean + lid_up
 
 
 def _nhwc(x):
@@ -143,10 +238,9 @@ class LidarCenterNet(nn.Module):
   def __init__(self, c: TransfuserConfig, norm: str = "gn"):
     super().__init__()
     self.cfg = c
-    lspec = arch_spec(c.lidar_arch)
     ispec = arch_spec(c.image_arch)
     self.backbone = TransfuserBackbone(c, norm)
-    self.change_channel = conv(lspec["widths"][-1], c.d_model, 1)
+    self.change_channel = conv(lidar_widths(c)[-1], c.d_model, 1)
     self.velocity_norm = AffineNorm(1)
     self.extra_fc1 = Linear(7, 128)
     self.extra_fc2 = Linear(128, c.d_model)

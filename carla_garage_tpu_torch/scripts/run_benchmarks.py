@@ -120,7 +120,8 @@ def build_agent(args, device):
   from carla_garage_tpu_torch.agents.sensor_agent import (
       make_transfuser_policy, sensor_agent_reset)
   from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
-                                                        TransfuserConfig)
+                                                        TransfuserConfig,
+                                                        lidar_history)
   from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
   from carla_garage_tpu_torch.sensors.lidar import lidar_ray_grid
   base = GlobalConfig()
@@ -139,7 +140,7 @@ def build_agent(args, device):
       bf16=True, brake_threshold=args.uncertainty_threshold,
       jpeg_quality=args.jpeg_quality)
   return policy, (lambda cfg_, B, device: sensor_agent_reset(
-      cfg_, B, n_lidar, device=device))
+      cfg_, B, n_lidar, seq_len=lidar_history(tcfg), device=device))
 
 
 def run(args, device="cuda", assets_root: str | None = None) -> dict:

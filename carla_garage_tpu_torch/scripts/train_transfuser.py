@@ -48,7 +48,8 @@ from carla_garage_tpu_torch.config import DEFAULT_CONFIG
 from carla_garage_tpu_torch.device import resolve_device
 from carla_garage_tpu_torch.maps import importer
 from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
-                                                      TransfuserConfig)
+                                                      TransfuserConfig,
+                                                      lidar_history)
 from carla_garage_tpu_torch.scripts.train_plant import (CHUNK, batch_mean,
                                                         collect_chunked,
                                                         quality_gate,
@@ -171,8 +172,8 @@ def build_dagger_dataset(cfg, args, tcfg, model, cam_grid, lid_f, lid_r,
   policy = make_transfuser_policy(model, None, tcfg, cam_grid, lid_f, lid_r,
                                   direct=True, bf16=True,
                                   brake_threshold=0.33)
-  st = state.replace(agent=sensor_agent_reset(cfg, args.episodes, n_lidar,
-                                              device=dev))
+  st = state.replace(agent=sensor_agent_reset(
+      cfg, args.episodes, n_lidar, seq_len=lidar_history(tcfg), device=dev))
   gen = torch.Generator(device=dev).manual_seed(seed)
   _, frames = collect_chunked(
       lambda s: collect_dagger_frames(cfg, maps, lanes, scene, s, policy,
@@ -222,8 +223,8 @@ def closed_loop_eval(cfg, args, tcfg, model, params, cam_grid, lid_f, lid_r,
   policy = make_transfuser_policy(model, params, tcfg, cam_grid, lid_f,
                                   lid_r, direct=True, bf16=True,
                                   brake_threshold=brake_threshold)
-  st = state.replace(agent=sensor_agent_reset(cfg, n_routes, n_lidar,
-                                              device=dev))
+  st = state.replace(agent=sensor_agent_reset(
+      cfg, n_routes, n_lidar, seq_len=lidar_history(tcfg), device=dev))
   final = rollout_chunked(cfg, maps, lanes, scene, st, max_ticks,
                           chunk=chunk, policy=policy,
                           generator=torch.Generator(

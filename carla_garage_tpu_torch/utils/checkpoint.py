@@ -18,7 +18,8 @@ import os
 import torch
 
 from carla_garage_tpu_torch.models.plant import PlanTConfig
-from carla_garage_tpu_torch.models.transfuser import TransfuserConfig
+from carla_garage_tpu_torch.models.transfuser import (
+    VIDEO_SWIN, TransfuserConfig, VideoTransfuserConfig)
 
 CONFIGS = {"transfuser": TransfuserConfig, "plant": PlanTConfig}
 
@@ -82,13 +83,17 @@ def _tuples(v):
 def config_from_meta(meta: dict):
   """The TransfuserConfig or PlanTConfig a checkpoint was saved with, from
   its meta.json: ``meta["model"]`` names the class and ``meta["config"]``
-  holds its fields (missing ones take their defaults). JSON lists become
-  tuples again, so the result equals and hashes like the saved config.
-  Raises on an unknown model or field."""
+  holds its fields (missing ones take their defaults); a TransfuserConfig
+  with ``lidar_arch="video_swin_t"`` is a VideoTransfuserConfig. JSON
+  lists become tuples again, so the result equals and hashes like the
+  saved config. Raises on an unknown model or field."""
   cls = CONFIGS.get(meta.get("model"))
   if cls is None:
     raise ValueError(f"meta.json model {meta.get('model')!r}: expected one "
                      f"of {sorted(CONFIGS)}")
+  if cls is TransfuserConfig and \
+      meta["config"].get("lidar_arch") == VIDEO_SWIN:
+    cls = VideoTransfuserConfig
   names = {f.name for f in dataclasses.fields(cls)}
   unknown = set(meta["config"]) - names
   if unknown:

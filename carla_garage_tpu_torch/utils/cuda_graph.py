@@ -35,7 +35,10 @@ caller that makes new tensors of them at once (a dtype cast).
 The spans (``utils/profiling.py``): ``graph.capture`` around a capture
 (opened outside the stream capture: a span's CUDA events recorded inside
 it would become nodes of the graph) and ``graph.replay`` around the
-inputs' copies and the replay.
+inputs' copies and the replay. The module's own spans inside the capture
+(where its warm-up opened any) become marker kernels in the graph
+(``profiling.capturing``), which every replay runs where the span opened
+and closed.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from __future__ import annotations
 import torch
 
 from carla_garage_tpu_torch.structs import tree_map
-from carla_garage_tpu_torch.utils.profiling import span
+from carla_garage_tpu_torch.utils.profiling import capturing, opened, span
 
 WARMUP = 2        # eager forwards on a side stream before a capture
 _SCALARS = (type(None), bool, int, float, str)
@@ -82,12 +85,13 @@ class _Graph:
     self.copy_in(tensors)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
+    spans = opened()
     with torch.cuda.stream(side):
       for _ in range(WARMUP):
         forward(module, *args, **kwargs)
     torch.cuda.current_stream().wait_stream(side)
     self.graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(self.graph):
+    with capturing(marks=opened() > spans), torch.cuda.graph(self.graph):
       self.outputs = forward(module, *args, **kwargs)
 
   def copy_in(self, tensors: list):

@@ -13,7 +13,18 @@ program's own spans.
   on the profiler's clock beside the operations and kernel launches made
   inside it; and while the recorder is on, each span is kept in memory as
   a ``Span`` (``recorded()``), until ``clear()``. Nothing is written to
-  disk. Spans are opened and closed on one thread.
+  disk. Spans are opened and closed on one thread. A span may carry a
+  count of what it produced (``span(name, count=n)``).
+- Inside a CUDA graph's stream capture a live span records nothing: it
+  puts two empty marker kernels into the graph instead, at its opening
+  and its close (``csrc/span_markers.cu``: ``cgt_span_begin<id>`` and
+  ``cgt_span_end<id>``, id from ``marker_ids()``), so that every replay
+  of the graph runs them around the span's work and a profiler's trace
+  shows where it began and ended. ``capturing(marks)`` goes around a
+  capture (``utils/cuda_graph.py``) and, where the captured code opens
+  spans (its warm-up opened some: ``opened()``), loads the markers before
+  it begins; a graph captured while spans are off, or of code that opens
+  none, holds none.
 """
 
 from __future__ import annotations
@@ -35,6 +46,10 @@ _spans = []              # recorded spans, in the order they opened
 _stack = []              # the recorded spans open now, innermost last
 _ids = itertools.count(1)
 _OFF = contextlib.nullcontext()
+_capture = False         # inside capturing()
+_opened = 0              # live spans opened so far
+_markers = None          # the marker kernels' library, once loaded
+_marker_ids = {}         # span name -> marker id, as spans first mark
 
 
 class Span:
@@ -47,10 +62,11 @@ class Span:
   stream, on a card, else None."""
 
   __slots__ = ("name", "id", "parent", "root", "start_ns", "end_ns",
-               "events")
+               "events", "count")
 
-  def __init__(self, name: str, parent: "Span | None"):
+  def __init__(self, name: str, parent: "Span | None", count=None):
     self.name = name
+    self.count = count
     self.id = next(_ids)
     self.parent = None if parent is None else parent.id
     self.root = self.id if parent is None else parent.root
@@ -68,10 +84,11 @@ class Span:
 class _Live:
   """A live span: the profiler's range, the recorded Span, or both."""
 
-  __slots__ = ("name", "rec", "rng")
+  __slots__ = ("name", "count", "rec", "rng")
 
-  def __init__(self, name: str):
+  def __init__(self, name: str, count=None):
     self.name = name
+    self.count = count
     self.rec = self.rng = None
 
   def __enter__(self):
@@ -79,7 +96,8 @@ class _Live:
       self.rng = torch.profiler.record_function(PREFIX + self.name)
       self.rng.__enter__()
     if _recording:
-      rec = self.rec = Span(self.name, _stack[-1] if _stack else None)
+      rec = self.rec = Span(self.name, _stack[-1] if _stack else None,
+                            self.count)
       _spans.append(rec)
       _stack.append(rec)
       if _cuda:
@@ -101,12 +119,87 @@ class _Live:
     return False
 
 
-def span(name: str):
+class _Marked:
+  """A live span inside a stream capture: marker kernels at both ends."""
+
+  __slots__ = ("id",)
+
+  def __init__(self, name: str):
+    if name not in _marker_ids:
+      if len(_marker_ids) == _markers.span_marker_count():
+        raise RuntimeError(f"no marker left for span {name!r}")
+      _marker_ids[name] = len(_marker_ids)
+    self.id = _marker_ids[name]
+
+  def _launch(self, end: int):
+    err = _markers.span_marker_launch(
+        self.id, end, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+      raise RuntimeError(f"span marker launch failed: CUDA error {err}")
+
+  def __enter__(self):
+    self._launch(0)
+    return self
+
+  def __exit__(self, *exc):
+    self._launch(1)
+    return False
+
+
+def span(name: str, count=None):
   """A context manager around one layer of the program (see the module's
-  docstring)."""
+  docstring); count: what the span produced (frames, rows, ...)."""
+  global _opened
   if not _live:
     return _OFF
-  return _Live(name)
+  if _capture:
+    return _OFF if _markers is None else _Marked(name)
+  _opened += 1
+  return _Live(name, count)
+
+
+def opened() -> int:
+  """The number of live spans opened so far, outside captures."""
+  return _opened
+
+
+@contextlib.contextmanager
+def capturing(marks: bool):
+  """Around a CUDA graph's stream capture. marks: the captured code opens
+  spans; then, while spans are live, the marker kernels are loaded first
+  (built on first use) and the spans opened inside mark the graph. Spans
+  opened inside record nothing in any case."""
+  global _capture
+  if marks and _live:
+    _load_markers()
+  _capture = True
+  try:
+    yield
+  finally:
+    _capture = False
+
+
+def _load_markers():
+  global _markers
+  if _markers is not None:
+    return
+  import ctypes
+  from carla_garage_tpu_torch.ops.build import load_kernel
+  lib = load_kernel("span_markers")
+  lib.span_marker_launch.argtypes = [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
+  lib.span_marker_launch.restype = ctypes.c_int
+  lib.span_marker_count.restype = ctypes.c_int
+  lib.span_marker_load.restype = ctypes.c_int
+  err = lib.span_marker_load()
+  if err != 0:
+    raise RuntimeError(f"span markers failed to load: CUDA error {err}")
+  _markers = lib
+
+
+def marker_ids() -> dict:
+  """{span name: marker id} of the spans that marked a captured graph."""
+  return dict(_marker_ids)
 
 
 def _update():

@@ -329,3 +329,49 @@ def test_graph_spans(cuda):
   models = {s.id for s in spans if s.name == "agent.model"}
   assert all(s.parent in models for s in spans if s.name.startswith("graph."))
   assert all(s.elapsed_ms() >= 0 for s in spans)
+
+
+class _SpanInside(torch.nn.Module):
+  """A forward that opens a span around part of its work."""
+
+  def __init__(self):
+    super().__init__()
+    self.lin = torch.nn.Linear(8, 8)
+
+  def forward(self, x):
+    with profiling.span("test.inside"):
+      x = torch.relu(self.lin(x))
+    return x * 2
+
+
+def test_graph_span_markers(cuda):
+  """A span opened inside a captured forward is a pair of marker kernels
+  in every replay, and the replay still equals the eager forward; a
+  forward that opens no span gets no marker."""
+  marked = _SpanInside().to(cuda).eval()
+  plain = torch.nn.Linear(8, 8).to(cuda).eval()
+  x = torch.randn(4, 8, device=cuda)
+  gm = cuda_graph.GraphedForward(marked)
+  gp = cuda_graph.GraphedForward(plain)
+  profiling.record(True)
+  try:
+    with torch.no_grad():
+      gm(x), gp(x)                      # the captures
+      torch.cuda.synchronize()
+      acts = [torch.profiler.ProfilerActivity.CPU,
+              torch.profiler.ProfilerActivity.CUDA]
+      with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+          got = gm(x)
+          gp(x)
+        torch.cuda.synchronize()
+      want = marked.forward(x)
+  finally:
+    profiling.record(False)
+    profiling.clear()
+  assert torch.equal(got, want)
+  mid = profiling.marker_ids()["test.inside"]
+  names = [e.name for e in prof.events() if "cgt_span_" in e.name]
+  assert sum(f"cgt_span_begin<{mid}>" in n for n in names) == 3, names
+  assert sum(f"cgt_span_end<{mid}>" in n for n in names) == 3, names
+  assert len(names) == 6, names

@@ -230,6 +230,26 @@ def test_spans_share_the_profilers_clock(scene, tmp_path):
     assert sum(holds(r, o) for o in ops) > 50
 
 
+def test_spans_inside_a_capture_record_nothing():
+  """``opened()`` counts the live spans; inside ``capturing`` a span
+  records nothing, and with marks=False (the warm-up opened no span) no
+  marker kernel is loaded."""
+  n = profiling.opened()
+  with profiling.span("off"):
+    pass
+  assert profiling.opened() == n
+  profiling.record(True)
+  with profiling.span("a"):
+    pass
+  assert profiling.opened() == n + 1
+  with profiling.capturing(marks=False):
+    with profiling.span("b"):
+      pass
+  assert profiling.opened() == n + 1
+  assert [s.name for s in profiling.recorded()] == ["a"]
+  assert profiling._markers is None and "b" not in profiling.marker_ids()
+
+
 def test_rollout_records_one_done_check_per_chunk(scene):
   maps, lanes, scn, state = scene
   policy, st = _policy("plant", state)

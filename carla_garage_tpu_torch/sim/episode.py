@@ -3,14 +3,25 @@
 One tick advances the whole batch: policy control -> scenario triggers and
 effects -> ego dynamics -> NPC traffic -> walkers -> criteria. Episodes
 that finish freeze in place by masking, not branching, and a tick makes no
-host sync, so a later step can capture a chunk of ticks as one CUDA graph.
-``rollout`` is a Python loop over ticks where the JAX package scans;
-``rollout_chunked`` checks once per chunk of ticks whether every episode
-is done, and ``rollout_recorded`` also keeps a decimated trajectory log.
-A tick is the span ``sim.tick`` (``utils/profiling.py``) around the spans
-of its layers: ``sim.policy``, ``sim.scenarios``, ``sim.dynamics``,
-``sim.traffic`` (vehicles and walkers) and ``sim.criteria``; a chunk's
-done check is ``rollout.done_check``.
+host sync. ``rollout`` is a Python loop over ticks where the JAX package
+scans; ``rollout_chunked`` checks once per chunk of ticks whether every
+episode is done, and ``rollout_recorded`` also keeps a decimated
+trajectory log. A tick is the span ``sim.tick`` (``utils/profiling.py``)
+around the spans of its layers: ``sim.policy``, ``sim.scenarios``,
+``sim.dynamics``, ``sim.traffic`` (vehicles and walkers) and
+``sim.criteria``; a chunk's done check is ``rollout.done_check``.
+
+On the card, the work after the policy replays as CUDA graphs
+(``utils/cuda_graph.GraphedStages``): one a layer, each inside its span,
+captured once per signature of the state, the policy's control and
+updates and the scenario draws, and holding the launches that the layer
+made eagerly. The policy stays an eager call (its model's forward is a
+graph of its own), and so do the tick's copies in and out of the graphs,
+the scenario engine's draw where the caller gives none, and the freeze of
+the policy's own carry (``SimState.agent``), which no layer after the
+policy reads and which the graphs therefore neither copy nor hold. On
+the CPU, and wherever the inputs cannot be keyed, the layers run eagerly,
+the same operations in the same order.
 
 The policy is the privileged expert (``sim/expert.expert_step``) unless
 the caller passes another, such as the sensor agent's. Randomness: the
@@ -37,6 +48,7 @@ from carla_garage_tpu_torch.sim.scenarios import scenario_step
 from carla_garage_tpu_torch.sim.traffic import traffic_step, walker_step
 from carla_garage_tpu_torch.structs import (ScenarioSpecs, ScenarioState,
                                             Scene, SimState, tree_map)
+from carla_garage_tpu_torch.utils.cuda_graph import GraphedStages
 from carla_garage_tpu_torch.utils.profiling import span
 from carla_garage_tpu_torch.utils.watchdog import Watchdog
 
@@ -57,6 +69,60 @@ def freeze_done(done: torch.Tensor, old, new):
   return tree_map(sel, old, new)
 
 
+def _scenarios(fixed: tuple, c: dict) -> dict:
+  """Scenario triggers and effects; the steer noise is added after the
+  policy and before the dynamics."""
+  cfg, _, _, scene = fixed
+  state, control = c["state"], c["control"]
+  new_scn, effects = scenario_step(cfg, scene.scenarios, state.scenario,
+                                   state, control_loss=c["control_loss"])
+  return dict(c, control=control.replace(steer=control.steer +
+                                         effects["steer_noise"]),
+              updates=dict(c["updates"], scenario=new_scn), effects=effects)
+
+
+def _dynamics(fixed: tuple, c: dict) -> dict:
+  cfg = fixed[0]
+  state, control = c["state"], c["control"]
+  pos, yaw, speed = bicycle_step(state.ego.pos, state.ego.yaw,
+                                 state.ego.speed, control.steer,
+                                 control.throttle, control.brake, cfg.sim)
+  return dict(c, ego=state.ego.replace(pos=pos, yaw=normalize_angle(yaw),
+                                       speed=speed))
+
+
+def _traffic(fixed: tuple, c: dict) -> dict:
+  cfg, _, lanes, scene = fixed
+  state = c["state"]
+  return dict(c, vehicles=traffic_step(cfg, lanes, scene, state,
+                                       c.get("effects")),
+              walkers=walker_step(cfg, scene, state))
+
+
+def _criteria(fixed: tuple, c: dict) -> SimState:
+  cfg, maps, _, scene = fixed
+  state = c["state"]
+  moved = state.replace(ego=c["ego"], vehicles=c["vehicles"],
+                        walkers=c["walkers"], tick=state.tick + 1,
+                        **c["updates"])
+  moved = moved.replace(criteria=criteria_step(cfg, maps, scene,
+                                               state.ego.pos, moved))
+  done = state.done | episode_done(cfg, moved)
+  # a finished episode keeps its whole state, scenario state included
+  return freeze_done(state.done, state, moved).replace(done=done)
+
+
+# the layers after the policy, in order; all agents advance simultaneously
+# (world.tick semantics)
+_LAYERS = (("sim.dynamics", _dynamics), ("sim.traffic", _traffic),
+           ("sim.criteria", _criteria))
+_SCENARIO_LAYERS = (("sim.scenarios", _scenarios),) + _LAYERS
+# one cache for the process, as sim_step's callers (the rollouts, datagen,
+# the benchmark) hold no state of their own between ticks; a new scene
+# storage drops what it holds
+_GRAPHS = GraphedStages()
+
+
 @torch.no_grad()
 def sim_step(cfg: GlobalConfig, maps: MapStack, lanes: LaneGraph,
              scene: Scene, state: SimState, policy: PolicyFn = expert_step,
@@ -73,41 +139,26 @@ def sim_step(cfg: GlobalConfig, maps: MapStack, lanes: LaneGraph,
     with span("sim.policy"):
       control, updates = policy(cfg, maps, scene, state,
                                 generator=generator, draws=draws)
-
-    # scenario triggers and effects: the steer noise is added after the
-    # policy and before the dynamics
-    effects = None
+    # the policy's own carry (the sensor agent's LiDAR history: about
+    # 100 MB at B=16 and 16 sweeps) goes through no layer but the freeze,
+    # so it stays out of the graphs' buffers and is frozen here, a launch
+    # a leaf
+    updates = dict(updates)
+    agent = freeze_done(state.done, state.agent,
+                        updates.pop("agent", state.agent))
+    carry = dict(state=state.replace(agent=()), control=control,
+                 updates=updates)
+    layers = _LAYERS
     if isinstance(scene.scenarios, ScenarioSpecs) and \
         isinstance(state.scenario, ScenarioState):
-      with span("sim.scenarios"):
-        new_scn, effects = scenario_step(cfg, scene.scenarios,
-                                         state.scenario, state,
-                                         generator=generator,
-                                         control_loss=control_loss)
-        control = control.replace(steer=control.steer +
-                                  effects["steer_noise"])
-        updates = dict(updates, scenario=new_scn)
-
-    # all agents advance simultaneously (world.tick semantics)
-    with span("sim.dynamics"):
-      pos, yaw, speed = bicycle_step(state.ego.pos, state.ego.yaw,
-                                     state.ego.speed, control.steer,
-                                     control.throttle, control.brake,
-                                     cfg.sim)
-      new_ego = state.ego.replace(pos=pos, yaw=normalize_angle(yaw),
-                                  speed=speed)
-    with span("sim.traffic"):
-      new_veh = traffic_step(cfg, lanes, scene, state, effects)
-      new_wlk = walker_step(cfg, scene, state)
-
-    with span("sim.criteria"):
-      moved = state.replace(ego=new_ego, vehicles=new_veh, walkers=new_wlk,
-                            tick=state.tick + 1, **updates)
-      moved = moved.replace(criteria=criteria_step(cfg, maps, scene,
-                                                   state.ego.pos, moved))
-      done = state.done | episode_done(cfg, moved)
-      # a finished episode keeps its whole state, scenario state included
-      return freeze_done(state.done, state, moved).replace(done=done)
+      layers = _SCENARIO_LAYERS
+      if control_loss is None:       # the draw scenario_step would make
+        control_loss = torch.randn(tuple(scene.scenarios.kind.shape),
+                                   generator=generator,
+                                   device=state.ego.pos.device)
+      carry["control_loss"] = control_loss
+    return _GRAPHS(layers, (cfg, maps, lanes, scene),
+                   carry).replace(agent=agent)
 
 
 def rollout(cfg: GlobalConfig, maps: MapStack, lanes: LaneGraph,

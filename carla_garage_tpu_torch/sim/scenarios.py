@@ -12,8 +12,9 @@ the scripted actors' behaviour are masked per-tick updates:
   OPPOSITE_DIRECTION: an NPC drives toward the ego in the opposite lane.
   JUNCTION_CROSSING: an NPC crosses the junction when the ego nears it.
 
-The CONTROL_LOSS noise is the one random draw: ``draws["control_loss"]``
-[B,K] standard normals, or drawn from the caller's generator.
+The CONTROL_LOSS noise is the one random draw: [B,K] standard normals
+that the caller passes in (``sim_step`` takes them from
+``draws["control_loss"]``, else from its generator).
 """
 
 from __future__ import annotations
@@ -66,8 +67,7 @@ def make_empty_specs(B: int, K: int, device="cuda") -> ScenarioSpecs:
 
 def scenario_step(cfg: GlobalConfig, specs: ScenarioSpecs,
                   sstate: ScenarioState, state: SimState,
-                  generator: torch.Generator | None = None,
-                  control_loss: torch.Tensor | None = None):
+                  control_loss: torch.Tensor):
   """Advance the triggers; return (new ScenarioState, effects dict).
 
   effects:
@@ -76,8 +76,7 @@ def scenario_step(cfg: GlobalConfig, specs: ScenarioSpecs,
     npc_speed_cap [B,V]      cap an NPC's target speed (OTHER_LEADING and
                              the parked scripted actors; +inf = no cap)
 
-  control_loss: [B,K] standard normals for the CONTROL_LOSS noise, or None
-  to draw them from `generator`."""
+  control_loss: [B,K] standard normals for the CONTROL_LOSS noise."""
   ego = state.ego
   B, K = specs.kind.shape
   V = state.vehicles.yaw.shape[1]
@@ -126,8 +125,6 @@ def scenario_step(cfg: GlobalConfig, specs: ScenarioSpecs,
 
   # CONTROL_LOSS: steering disturbance while active
   is_cl = active & (specs.kind == ScenarioType.CONTROL_LOSS)
-  if control_loss is None:
-    control_loss = torch.randn((B, K), generator=generator, device=dev)
   noise = control_loss * specs.magnitude
   steer_noise = torch.sum(torch.where(is_cl, noise, 0.0), -1)
 

@@ -1,6 +1,8 @@
 """On-card tests of the port's CUDA kernels against their plain versions,
-and of the models' forwards replayed as CUDA graphs
-(``utils/cuda_graph.GraphedForward``) against their eager forwards.
+of the models' forwards replayed as CUDA graphs
+(``utils/cuda_graph.GraphedForward``) against their eager forwards, and of
+the simulator's tick after the policy replayed as CUDA graphs
+(``GraphedStages`` in ``sim/episode.sim_step``) against its eager tick.
 
 They need an NVIDIA card with nvcc (Hopper, sm_90a) and skip elsewhere.
 This file imports no JAX, so it runs on a machine without it:
@@ -10,12 +12,16 @@ This file imports no JAX, so it runs on a machine without it:
 (--noconftest because tests/conftest.py configures JAX.)
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from carla_garage_tpu_torch.agents import plant_agent as pa
+from carla_garage_tpu_torch.agents import sensor_agent as sa
+from carla_garage_tpu_torch.config import DEFAULT_CONFIG as CFG
 from carla_garage_tpu_torch.models import transfuser as ttf
 from carla_garage_tpu_torch.models.plant import PlanT, PlanTConfig
 from carla_garage_tpu_torch.ops import kernel_cases
@@ -24,6 +30,11 @@ from carla_garage_tpu_torch.ops.bev_fill import (fill_boxes,
                                                  pack_boxes)
 from carla_garage_tpu_torch.ops.raycast import (raycast_boxes,
                                                 raycast_boxes_plain)
+from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
+from carla_garage_tpu_torch.sensors.lidar import lidar_ray_grid
+from carla_garage_tpu_torch.sim import episode
+from carla_garage_tpu_torch.sim.expert import expert_step
+from carla_garage_tpu_torch.sim.scene_builder import make_town_batch
 from carla_garage_tpu_torch.structs import tree_items, tree_map
 from carla_garage_tpu_torch.utils import cuda_graph, profiling
 
@@ -375,3 +386,190 @@ def test_graph_span_markers(cuda):
   assert sum(f"cgt_span_begin<{mid}>" in n for n in names) == 3, names
   assert sum(f"cgt_span_end<{mid}>" in n for n in names) == 3, names
   assert len(names) == 6, names
+
+
+
+# --- the simulator's tick after the policy as CUDA graphs ------------------
+
+SIM_TICKS = 16
+SIM_LAYERS = ("sim.scenarios", "sim.dynamics", "sim.traffic", "sim.criteria")
+
+
+@pytest.fixture
+def fresh_sim_graphs(monkeypatch):
+  """sim_step with a cache of graphs of its own (the test's captures are
+  counted from none)."""
+  monkeypatch.setattr(episode, "_GRAPHS", cuda_graph.GraphedStages())
+  return episode._GRAPHS
+
+
+def sim_scene(dev, batch=GRAPH_B):
+  _, maps, lanes, scene, state = make_town_batch(
+      CFG, "synth", batch=batch, seed=0, n_vehicles=8, n_walkers=2,
+      use_scenarios=True, device=dev)
+  return maps, lanes, scene, state
+
+
+def sim_policy(kind, state, dev):
+  """(policy, state with its agent) at the tests' small sizes: the
+  expert, the micro PlanT, or the micro TransFuser++ with B1's sensors."""
+  torch.manual_seed(0)
+  B = state.tick.shape[0]
+  if kind == "expert":
+    return expert_step, state
+  if kind == "plant":
+    policy = pa.make_plant_policy(PlanT(GRAPH_PCFG).to(dev), None,
+                                  GRAPH_PCFG, direct=True)
+    return policy, state.replace(agent=pa.plant_agent_reset(CFG, B,
+                                                            device=dev))
+  c = dataclasses.replace(ttf.micro_config(), img_h=32, img_w=128,
+                          lidar_h=256, lidar_w=256, img_anchors=(1, 4),
+                          lidar_anchors=(8, 8))
+  lid_f = lidar_ray_grid(CFG, half=0, decimate=16)
+  lid_r = lidar_ray_grid(CFG, half=1, decimate=16)
+  policy = sa.make_transfuser_policy(
+      ttf.LidarCenterNet(c).to(dev), None, c, camera_ray_grid(CFG, scale=8),
+      lid_f, lid_r, direct=True)
+  n_lidar = lid_f.shape[0] * lid_f.shape[1]
+  return policy, state.replace(agent=sa.sensor_agent_reset(
+      CFG, B, n_lidar, device=dev))
+
+
+def sim_run(sim, policy, state, ticks=SIM_TICKS, drawn=False, kept=None):
+  """The states after each of `ticks` ticks, from fixed seeds: the
+  scenario engine's draws from the generator, or given (`drawn`); a copy
+  of each, taken before the next tick runs, is appended to `kept`."""
+  maps, lanes, scene, _ = sim
+  gen = torch.Generator(device=state.tick.device).manual_seed(7)
+  loss = torch.Generator(device=state.tick.device).manual_seed(11)
+  K = scene.scenarios.kind.shape[1]
+  out = []
+  for _ in range(ticks):
+    draws = {"control_loss": torch.randn(
+        (state.tick.shape[0], K), generator=loss,
+        device=state.tick.device)} if drawn else None
+    state = episode.sim_step(CFG, maps, lanes, scene, state, policy,
+                             generator=gen, draws=draws)
+    out.append(state)
+    if kept is not None:
+      kept.append(tree_map(torch.clone, state))
+  return out
+
+
+def equal_states(a, b):
+  la, lb = list(tree_items(a)), list(tree_items(b))
+  assert la and [k for k, _ in la] == [k for k, _ in lb]
+  for (k, x), (_, y) in zip(la, lb):
+    assert x.dtype == y.dtype and x.shape == y.shape, k
+    assert torch.equal(x, y), k
+
+
+@contextlib.contextmanager
+def sim_eager(monkeypatch):
+  """sim_step runs its layers eagerly inside (the policy's forward stays a
+  graph)."""
+  with monkeypatch.context() as mp:
+    mp.setattr(cuda_graph, "_eager_mode", lambda: True)
+    yield
+
+
+@pytest.mark.parametrize("kind,drawn", [("expert", False), ("expert", True),
+                                        ("plant", False), ("tfpp", False)])
+def test_sim_graphs_replay_the_eager_tick(cuda, kind, drawn, monkeypatch,
+                                          fresh_sim_graphs):
+  """16 ticks with the graphs and 16 eager from the same state and seeds
+  are bit-equal at every tick; the graphs are captured in the first two
+  ticks at most (the reset state's strides, then the tick's own) and
+  replayed after; a state returned at a tick is untouched by every later
+  tick."""
+  graphs = fresh_sim_graphs
+  sim = sim_scene(cuda)
+  policy, state = sim_policy(kind, sim[3], cuda)
+  held = []
+
+  def call(*a, **kw):
+    out = graphs(*a, **kw)
+    held.append(len(graphs.graphs))
+    return out
+  monkeypatch.setattr(episode, "_GRAPHS", call)
+  with torch.no_grad():
+    kept = []
+    graphed = sim_run(sim, policy, state, drawn=drawn, kept=kept)
+    with sim_eager(monkeypatch):
+      eager = sim_run(sim, policy, state, drawn=drawn)
+  torch.cuda.synchronize()
+  assert 1 <= held[0] and held[1] <= 2
+  assert held == held[:2] + [held[1]] * (2 * SIM_TICKS - 2)
+  for g, e, k in zip(graphed, eager, kept):
+    equal_states(g, e)
+    equal_states(g, k)
+  assert int(graphed[-1].tick.min()) == SIM_TICKS
+  if kind == "tfpp":
+    # the policy's LiDAR history is frozen outside the graphs: no buffer
+    # of theirs holds it
+    history = tuple(state.agent.prev_lidar.shape)
+    for g in graphs.graphs.values():
+      assert all(tuple(t.shape) != history for t in g.inputs + g._outs)
+
+
+def test_sim_graphs_follow_shapes_and_storage(cuda, monkeypatch,
+                                              fresh_sim_graphs):
+  """Another run on the same scene only replays; a new batch size (a new
+  scene) captures again, as does a scene whose storage was replaced, each
+  dropping the graphs before; every run is bit-equal to the eager tick."""
+  graphs = fresh_sim_graphs
+  captures = count_captures(monkeypatch)
+
+  def both(sim, ticks=3):
+    with torch.no_grad():
+      got = sim_run(sim, expert_step, sim[3], ticks)
+      with sim_eager(monkeypatch):
+        want = sim_run(sim, expert_step, sim[3], ticks)
+    for g, e in zip(got, want):
+      equal_states(g, e)
+
+  a = sim_scene(cuda)
+  both(a)
+  n = captures[0]
+  assert 1 <= n <= 2 and len(graphs.graphs) == n
+  both(a)
+  assert captures[0] == n
+  b = sim_scene(cuda, batch=GRAPH_B + 1)
+  both(b)
+  assert 1 <= captures[0] - n <= 2
+  assert len(graphs.graphs) == captures[0] - n
+  n = captures[0]
+  maps, lanes, scene, state = b
+  both((maps, lanes, tree_map(torch.clone, scene), state))
+  assert 1 <= captures[0] - n <= 2
+  assert len(graphs.graphs) == captures[0] - n
+
+
+def test_sim_graph_spans(cuda, fresh_sim_graphs):
+  """Each layer's span holds one ``graph.replay`` a tick, timed by CUDA
+  events outside the capture; ``graph.capture`` opens inside ``sim.tick``
+  in the capturing ticks only."""
+  sim = sim_scene(cuda)
+  profiling.record(True)
+  try:
+    with torch.no_grad():
+      sim_run(sim, expert_step, sim[3], ticks=4)
+    torch.cuda.synchronize()
+    spans = profiling.recorded()
+  finally:
+    profiling.record(False)
+    profiling.clear()
+  by_id = {s.id: s for s in spans}
+  ticks = [s for s in spans if s.name == "sim.tick"]
+  assert len(ticks) == 4
+  for name in SIM_LAYERS:
+    layer = [s for s in spans if s.name == name]
+    assert len(layer) == 4, name
+    for s in layer:
+      inside = [r for r in spans if r.parent == s.id]
+      assert [r.name for r in inside] == ["graph.replay"], name
+      assert by_id[s.parent].name == "sim.tick"
+  caps = [s for s in spans if s.name == "graph.capture"]
+  assert 1 <= len(caps) <= 2
+  assert all(by_id[s.parent].name == "sim.tick" for s in caps)
+  assert all(s.elapsed_ms() >= 0 for s in spans)

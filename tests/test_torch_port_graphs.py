@@ -10,11 +10,19 @@ card: ``GraphedForward`` calls the module eagerly.
 * The sensor policy (float32, bf16 and a two-member ensemble) and the
   PlanT policy, which call their models through it, step the micro scene
   bit-equal to the same policies with the models called directly.
+* The signature keys pytrees (structure, shapes, strides, dtypes, plain
+  scalars), refuses what it cannot key, and holds no tensor once dropped.
+* ``sim_step``, whose layers after the policy are ``GraphedStages`` on the
+  card, runs them eagerly on the CPU, bit-equal to the tick as it was
+  written before (``_tick_before``) with the expert, PlanT and
+  TransFuser++, and its spans hold no ``graph.*`` span.
 
-The replay itself runs only on a card: ``tests/test_torch_port_cuda.py``.
+The replays themselves run only on a card: ``tests/test_torch_port_cuda.py``.
 """
 
 import dataclasses
+import gc
+import weakref
 
 import pytest
 import torch
@@ -26,10 +34,18 @@ from carla_garage_tpu_torch.models import transfuser as ttf
 from carla_garage_tpu_torch.models.plant import PlanT, PlanTConfig
 from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
 from carla_garage_tpu_torch.sensors.lidar import lidar_ray_grid
-from carla_garage_tpu_torch.sim.episode import sim_step
+from carla_garage_tpu_torch.sim import episode
+from carla_garage_tpu_torch.sim.criteria import criteria_step, episode_done
+from carla_garage_tpu_torch.sim.dynamics import bicycle_step
+from carla_garage_tpu_torch.sim.episode import freeze_done, sim_step
+from carla_garage_tpu_torch.sim.expert import expert_step
+from carla_garage_tpu_torch.sim.geometry import normalize_angle
+from carla_garage_tpu_torch.sim.scenarios import scenario_step
 from carla_garage_tpu_torch.sim.scene_builder import make_town_batch
-from carla_garage_tpu_torch.structs import tree_items
-from carla_garage_tpu_torch.utils import cuda_graph
+from carla_garage_tpu_torch.sim.traffic import traffic_step, walker_step
+from carla_garage_tpu_torch.structs import (ScenarioSpecs, ScenarioState,
+                                            tree_items, tree_map)
+from carla_garage_tpu_torch.utils import cuda_graph, profiling
 from carla_garage_tpu_torch.utils.cuda_graph import GraphedForward
 
 B = 2
@@ -135,15 +151,16 @@ def test_grad_mode_stays_eager_with_autograd(no_cuda):
 
 
 def test_signature_refuses_what_it_cannot_key():
-  """Tensors on the CPU and arguments that are neither tensors nor plain
-  scalars leave the call eager (no signature)."""
-  assert cuda_graph._signature((torch.zeros(2),), {}) is None
-  assert cuda_graph._signature((1, [2]), {}) is None
-  assert cuda_graph._signature((), {"x": (torch.zeros(1),)}) is None
-  key, tensors = cuda_graph._signature((1, None), {"b": 2.0, "a": "s"})
+  """Tensors on the CPU, at the top or nested, and leaves that are neither
+  tensors, plain scalars nor containers of them leave the call eager (no
+  signature); plain scalars are keyed by type and value."""
+  assert cuda_graph._signature(((torch.zeros(2),), {})) is None
+  assert cuda_graph._signature(((1, object()), {})) is None
+  assert cuda_graph._signature(((), {"x": (torch.zeros(1),)})) is None
+  key, tensors = cuda_graph._signature(((1, None), {"a": "s", "b": 2.0}))
   assert tensors == []
-  assert key[:4] == ((0, int, 1), (1, type(None), None),
-                     ("a", str, "s"), ("b", float, 2.0))
+  assert key[:7] == ((tuple, 2), (tuple, 2), (int, 1), (type(None), None),
+                     (dict, ("a", "b")), (str, "s"), (float, 2.0))
 
 
 @pytest.fixture(scope="module")
@@ -197,3 +214,150 @@ def test_policies_unchanged_by_the_wrapper(scene, kind, monkeypatch,
       mp.setattr(mod, "GraphedForward", lambda m, copy_outputs=True: m)
     direct = _ticks(scene, kind)
   _equal_trees(wrapped, direct)
+
+
+class _OnCard(torch.Tensor):
+  """A CPU tensor that reports itself on the card, so that trees of them
+  can be keyed here."""
+
+  @property
+  def is_cuda(self):
+    return True
+
+
+def _card(t):
+  return torch.Tensor._make_subclass(_OnCard, t)
+
+
+def test_signature_keys_pytrees(scene):
+  """The key holds the tree's structure, each tensor's shape, strides and
+  dtype and each scalar's value, not the tensors' values; the tensors come
+  in the order ``tree_map`` visits them."""
+  state = scene[3]
+  tree = {"state": tree_map(_card, state), "n": 3, "c": [None, 1.5]}
+  key, tensors = cuda_graph._signature(tree)
+  assert [id(t) for t in tensors] == [id(t) for _, t in tree_items(tree)]
+  again = {"state": tree_map(lambda t: _card(torch.ones_like(t)), state),
+           "n": 3, "c": [None, 1.5]}
+  assert cuda_graph._signature(again)[0] == key
+  ego = tree["state"].ego
+  changed = [
+      dict(tree, n=4),
+      dict(tree, c=[None, 1.5, 2]),
+      dict(tree, c=(None, 1.5)),
+      {"state": tree["state"], "m": 3, "c": [None, 1.5]},
+      dict(tree, state=tree["state"].replace(
+          ego=ego.replace(pos=_card(ego.pos.double())))),
+      dict(tree, state=tree["state"].replace(
+          ego=ego.replace(pos=_card(ego.pos[:1])))),
+      dict(tree, state=tree["state"].replace(
+          ego=ego.replace(pos=_card(ego.pos.t().contiguous().t())))),
+      dict(tree, state=tree["state"].replace(ego=(ego.pos,))),
+  ]
+  keys = [cuda_graph._signature(t)[0] for t in changed]
+  assert all(k != key for k in keys)
+  assert len(set(keys)) == len(keys)
+  assert cuda_graph._signature(dict(tree, g=torch.Generator())) is None
+  assert cuda_graph._signature(dict(tree, state=tree["state"].replace(
+      ego=ego.replace(speed=state.ego.speed)))) is None
+
+
+def test_signature_lets_its_tensors_go():
+  """Keying a tree makes no reference cycle: once the caller drops the
+  signature, its tensors are freed at once, not when the garbage collector
+  next runs (a tick's inputs would pile up on the card until then)."""
+  t = _card(torch.zeros(8))
+  ref = weakref.ref(t)
+  was = gc.isenabled()
+  gc.disable()
+  try:
+    sig = cuda_graph._signature({"a": [t, (1, {"b": t})]})
+    assert sig is not None and len(sig[1]) == 2
+    del sig, t
+    assert ref() is None
+  finally:
+    if was:
+      gc.enable()
+
+
+def _tick_before(cfg, maps, lanes, scene, state, policy, generator=None,
+                 draws=None):
+  """``sim_step`` as it was written before its layers after the policy
+  became graph stages (its spans left out, and scenario_step's draw, which
+  it made itself then, made here)."""
+  draws = dict(draws or {})
+  control_loss = draws.pop("control_loss", None)
+  control, updates = policy(cfg, maps, scene, state, generator=generator,
+                            draws=draws)
+  effects = None
+  if isinstance(scene.scenarios, ScenarioSpecs) and \
+      isinstance(state.scenario, ScenarioState):
+    if control_loss is None:      # the draw scenario_step made itself
+      control_loss = torch.randn(tuple(scene.scenarios.kind.shape),
+                                 generator=generator,
+                                 device=state.ego.pos.device)
+    new_scn, effects = scenario_step(cfg, scene.scenarios, state.scenario,
+                                     state, control_loss=control_loss)
+    control = control.replace(steer=control.steer + effects["steer_noise"])
+    updates = dict(updates, scenario=new_scn)
+  pos, yaw, speed = bicycle_step(state.ego.pos, state.ego.yaw,
+                                 state.ego.speed, control.steer,
+                                 control.throttle, control.brake, cfg.sim)
+  new_ego = state.ego.replace(pos=pos, yaw=normalize_angle(yaw), speed=speed)
+  new_veh = traffic_step(cfg, lanes, scene, state, effects)
+  new_wlk = walker_step(cfg, scene, state)
+  moved = state.replace(ego=new_ego, vehicles=new_veh, walkers=new_wlk,
+                        tick=state.tick + 1, **updates)
+  moved = moved.replace(criteria=criteria_step(cfg, maps, scene,
+                                               state.ego.pos, moved))
+  done = state.done | episode_done(cfg, moved)
+  return freeze_done(state.done, state, moved).replace(done=done)
+
+
+@pytest.mark.parametrize("kind", ["expert", "plant", "tfpp"])
+@pytest.mark.parametrize("drawn", [False, True])
+def test_sim_step_on_the_cpu_is_the_eager_tick(scene, kind, drawn, no_cuda):
+  """Four ticks from the generator (or with the scenario draws given) equal
+  the tick as written before, leaf for leaf and bit for bit, and nothing is
+  captured."""
+  maps, lanes, scn, state = scene
+  policy, st0 = ((expert_step, state) if kind == "expert" else
+                 _policy(kind, state))
+  K = scn.scenarios.kind.shape[1]
+  runs = []
+  for step in (sim_step, _tick_before):
+    gen = torch.Generator().manual_seed(7)
+    loss = torch.Generator().manual_seed(11)
+    st, states = st0, []
+    with torch.no_grad():
+      for _ in range(4):
+        draws = {"control_loss": torch.randn(B, K, generator=loss)} \
+            if drawn else None
+        st = step(CFG, maps, lanes, scn, st, policy, generator=gen,
+                  draws=draws)
+        states.append(st)
+    runs.append(states)
+  for a, b in zip(*runs):
+    _equal_trees(a, b)
+  assert episode._GRAPHS.graphs == {}
+
+
+def test_sim_step_spans_on_the_cpu(scene, no_cuda):
+  """One tick: ``sim.tick`` around the policy's span and one span each for
+  the scenarios, dynamics, traffic and criteria, in that order, and no
+  ``graph.*`` span."""
+  maps, lanes, scn, state = scene
+  profiling.record(True)
+  try:
+    sim_step(CFG, maps, lanes, scn, state,
+             generator=torch.Generator().manual_seed(7))
+    spans = profiling.recorded()
+  finally:
+    profiling.record(False)
+    profiling.clear()
+  tick = [s for s in spans if s.name == "sim.tick"]
+  assert len(tick) == 1
+  layers = [s.name for s in spans if s.parent == tick[0].id]
+  assert layers == ["sim.policy", "sim.scenarios", "sim.dynamics",
+                    "sim.traffic", "sim.criteria"]
+  assert not any(s.name.startswith("graph.") for s in spans)

@@ -18,7 +18,7 @@ import torch
 
 NFIELDS = 8
 # floating-point operations of one pixel-box test, for the bound that
-# chip_smoke.py reports: dx, dy (2 subtractions) and the rotation
+# ``fill_boxes_bev_cost`` counts: dx, dy (2 subtractions) and the rotation
 # c*dx + s*dy, -s*dx + c*dy with -s taken once per box (4 multiplies, 2
 # adds); the absolute values are free operand modifiers of the compares
 TEST_FLOPS = 8
@@ -76,8 +76,8 @@ def fill_tile_candidates_plain(boxes: torch.Tensor, h: int, w: int):
   """[B,V,tiles_y,tiles_x] bool: the (box, tile) pairs the kernel's
   footprint cull keeps, in its fp32 operations (csrc/fill_boxes_bev.cu
   derives the margins), for its TILE_H x TILE_W tiles. Used by the tests,
-  which hold it against ``fill_hits_plain``, and by chip_smoke.py; the
-  main path does not call it."""
+  which hold it against ``fill_hits_plain``; the main path does not call
+  it."""
   dev = boxes.device
   x0 = torch.arange(0, w, TILE_W, device=dev).to(torch.float32)
   y0 = torch.arange(0, h, TILE_H, device=dev).to(torch.float32)

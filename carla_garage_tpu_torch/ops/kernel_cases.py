@@ -2,9 +2,9 @@
 
 The tests hold each cull's plain mirror against the exact test on these
 inputs on the CPU (``tests/test_torch_port_kernel_cull.py``), and each
-kernel against its plain version on the card (``tests/
-test_torch_port_cuda.py``, ``chip_smoke.py`` phase 7). They aim at the
-places where the exact fp32 test and a cull can disagree: rays grazing box
+kernel against its plain version on the card
+(``tests/test_torch_port_cuda.py``). They aim at the places where the
+exact fp32 test and a cull can disagree: rays grazing box
 corners and running along edges, rays parallel to a box axis (the
 ``r_safe`` branch), vertical rays, origins inside boxes, boxes far away,
 boxes of zero extent, rising rays against tall poles; BEV boxes on tile

@@ -18,10 +18,10 @@ from carla_garage_tpu_torch.utils.profiling import span
 NFIELDS = 9
 MISS_T = 1e9
 # floating-point operations the function needs, for the bound that
-# chip_smoke.py reports. Per ray and box: the ray's rotation into the box
-# frame (6), three slabs (guard, two divisions, min, max: 5 each = 15), the
-# entry/exit reductions (4), the hit test and selection (5). Per box and
-# episode, whatever the ray: the origin in the box frame (px, py, lx, ly
+# ``raycast_boxes_cost`` counts. Per ray and box: the ray's rotation into
+# the box frame (6), three slabs (guard, two divisions, min, max: 5 each =
+# 15), the entry/exit reductions (4), the hit test and selection (5). Per
+# box and episode, whatever the ray: the origin in the box frame (px, py, lx, ly
 # with -sin, lz: 10) and the slab numerators -e-p, e-p of three axes (9).
 RAY_BOX_FLOPS = 30
 BOX_FLOPS = 19
@@ -102,8 +102,8 @@ def raycast_candidates_plain(origins: torch.Tensor, dirs: torch.Tensor,
   """[B,N,K] bool: the (ray, box) pairs the kernel's cull lets through to
   the exact test, in the kernel's fp32 operations (a valid box that
   neither rule (a) nor rule (b) of csrc/raycast_boxes.cu skips). Used by
-  the tests, which hold it against ``raycast_hits_plain``, and by
-  chip_smoke.py; the main path does not call it."""
+  the tests, which hold it against ``raycast_hits_plain``; the main path
+  does not call it."""
   B, N, _ = dirs.shape
   dx, dy, dz = dirs[..., 0], dirs[..., 1], dirs[..., 2]
   ox, oy, oz = (origins[:, i:i + 1].to(torch.float32) for i in range(3))

@@ -2,10 +2,10 @@
 renderer and the full LiDAR sweep, torch vs JAX on the CPU.
 
 The kernel's plain version is what the card's kernel is held against
-(``chip_smoke.py``, ``tests/test_torch_port_cuda.py``); here it is held
-against the JAX kernel (interpret mode on the CPU) and the JAX reference,
-fed the reference's own cos and sin: the maps must be equal, pixel for
-pixel.
+(``tests/test_torch_port_cuda.py``, ``tests/test_torch_port_card.py``);
+here it is held against the JAX kernel (interpret mode on the CPU) and
+the JAX reference, fed the reference's own cos and sin: the maps must be
+equal, pixel for pixel.
 """
 
 import dataclasses

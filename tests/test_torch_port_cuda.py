@@ -84,11 +84,13 @@ FILL_CASES = kernel_cases.fill_cases()
 
 
 @pytest.mark.parametrize("B,N,K", [(3, 1000, 13), (2, 257, 48), (1, 5, 0),
+                                   (16, 262144, 48), (16, 29952, 48),
                                    (16, 59904, 48), (2, 3000, 1000)])
 def test_raycast_kernel_matches_plain(cuda, B, N, K):
-  """Random cases, the training sweep's shape (16 x 59,904 rays, 48 box
-  slots), and 1,000 boxes: 64 KB of staged records, past the 48 KB that
-  needs no opt-in."""
+  """Random cases, the full-width shapes of the main paths with the
+  scene's 48 box slots (16 x 262,144 camera rays, 16 x 29,952 rays of a
+  LiDAR half sweep, 16 x 59,904 of the training sweep), and 1,000 boxes:
+  64 KB of staged records, past the 48 KB that needs no opt-in."""
   o, d, bx = (x.to(cuda) for x in random_box_case(B, N, K, seed=N))
   _raycast_equals_plain(o, d, bx)
 

@@ -2,11 +2,12 @@
 importer.py) and ``make_town_batch`` on imported towns, against the JAX
 package on the CPU.
 
-``write_asset_root`` writes a small asset root in the reference's layout:
-two towns in the h5 layer layout (``Town01``: the procedural grid at
-3 x 3 streets, 600 x 600 px at 4 px/m, its center marking a yellow
-two-way marking; ``Town02``: a 2 x 3 grid without yellow, shifted by a
-world offset), a ``longest6.xml`` and a ``lav.xml`` of routes sampled on
+``write_asset_root`` (``tests/port_inputs.py``, shared with the card
+tests) writes a small asset root in the reference's layout: two towns in
+the h5 layer layout (``Town01``: the procedural grid at 3 x 3 streets,
+600 x 600 px at 4 px/m, its center marking a yellow two-way marking;
+``Town02``: a 2 x 3 grid without yellow, shifted by a world offset), a
+``longest6.xml`` and a ``lav.xml`` of routes sampled on
 the grids' own lanes, and scenario annotations (Scenario1/3/4 along the
 lanes; Scenario7/8/10 at Town01's junctions; a Town02 file listing one
 site set under every type, the degenerate case). Both packages' town
@@ -42,11 +43,12 @@ from carla_garage_tpu.maps import importer as j_imp
 from carla_garage_tpu.maps import synthetic as j_syn
 from carla_garage_tpu.sim import scene_builder as j_sb
 from carla_garage_tpu_torch.config import DEFAULT_CONFIG
-from carla_garage_tpu_torch.maps import importer, routing
+from carla_garage_tpu_torch.maps import importer
 from carla_garage_tpu_torch.maps.synthetic import make_town
 from carla_garage_tpu_torch.maps.town_map import LaneGraph
 from carla_garage_tpu_torch.sim import scene_builder
 from carla_garage_tpu_torch.sim.scenarios import ScenarioType as ST
+from port_inputs import TOWNS, write_asset_root
 from test_torch_port_scenarios import _compare_batches
 from test_torch_port_scene import clear_jax_town_caches
 
@@ -54,80 +56,11 @@ V = 16
 JC = JCFG.replace(sim=dataclasses.replace(JCFG.sim, max_vehicles=V))
 CFG = DEFAULT_CONFIG.replace(sim=dataclasses.replace(DEFAULT_CONFIG.sim,
                                                      max_vehicles=V))
-TOWNS = {"Town01": dict(n_x=3, n_y=3, yellow=True, offset=(0.0, 0.0)),
-         "Town02": dict(n_x=2, n_y=3, yellow=False, offset=(-50.0, -20.0))}
 
 
 @pytest.fixture(autouse=True)
 def _fresh_jax_town_caches():
   clear_jax_town_caches()
-
-
-def grid_town_arrays(n_x, n_y, yellow, offset, block=60.0, margin=15.0):
-  """(h5 layers, ppm, world_offset, grid town) of a procedural grid town
-  whose world is shifted by `offset`: the town's lanes, shifted, are
-  lanes of the h5 town."""
-  t = make_town(n_x=n_x, n_y=n_y, block=block, margin=margin)
-  arrays = importer.grid_town_arrays(n_x=n_x, n_y=n_y, block=block,
-                                     margin=margin, yellow=yellow)
-  off = np.asarray(offset, np.float32)
-  shifted = dataclasses.replace(
-      t, lane_polys=[p + off for p in t.lane_polys])
-  return arrays, t.ppm, off, shifted
-
-
-def sample_routes(town, n, seed, min_m=90.0, max_m=200.0):
-  """n lane-graph routes (keypoints xy, yaw) whose goal lies 40 m or more
-  from their start."""
-  rng = np.random.default_rng(seed)
-  out = []
-  while len(out) < n:
-    res = routing.sample_lane_route(town.lane_polys, town.lane_successors,
-                                    rng, min_len_m=min_m, max_len_m=max_m)
-    if res is not None and np.linalg.norm(res[0][-1] - res[0][0]) > 40.0:
-      out.append(res)
-  return out
-
-
-def write_asset_root(root, towns=TOWNS, n_routes=(3, 2), h5=True) -> dict:
-  """Write the asset root (see the module docstring). Returns {town:
-  (arrays, ppm, world_offset)}. h5=False leaves the town files out."""
-  layers, l6, lav, public = {}, [], [], {}
-  for ti, (name, spec) in enumerate(towns.items()):
-    arrays, ppm, off, town = grid_town_arrays(**spec)
-    layers[name] = (arrays, ppm, off)
-    if h5:
-      importer.write_town_h5(root, name, arrays, ppm, off)
-    routes = sample_routes(town, n_routes[ti] + 1, seed=ti)
-    for k, (xy, yaw) in enumerate(routes[:-1]):
-      l6.append((f"{ti * 10 + k}", name, xy, yaw))
-    lav.append((f"{ti * 10 + 9}", name, *routes[-1]))
-    # Scenario1/3/4 sites every 8 m or so along every third lane each,
-    # facing the lane's travel direction: random routes meet them too
-    public[name] = {k: [(float(x), float(y), float(np.degrees(np.arctan2(
-        *(p[-1] - p[0])[::-1])))) for p in town.lane_polys[i::3]
-        for x, y in p[1:-1:2]]
-        for i, k in enumerate(("Scenario1", "Scenario3", "Scenario4"))}
-  data = os.path.join(root, importer.ROUTES_DIR)
-  importer.write_routes_xml(os.path.join(data, "longest6.xml"), l6)
-  importer.write_routes_xml(os.path.join(data, "lav.xml"), lav)
-  scen = os.path.join(data, "scenarios")
-  importer.write_scenarios_json(
-      os.path.join(scen, "all_towns_traffic_scenarios_public.json"), public)
-  # Town01: signalized approaches at two junctions, an unsignalized one
-  importer.write_scenarios_json(
-      os.path.join(scen, "town01_all_scenarios.json"),
-      {"Town01": {"Scenario7": [(60.0, 26.0, 90.0), (60.0, 26.0, 90.0)],
-                  "Scenario8": [(129.0, 73.25, 180.0)],
-                  "Scenario10": [(15.0 + 1.75, 120.0, -90.0)]}})
-  # Town02: one blanket site list under every type (no information)
-  sites = [(-50.0 + 15.0, -20.0 + 30.0, 90.0),
-           (-50.0 + 75.0, -20.0 + 90.0, 0.0)]
-  importer.write_scenarios_json(
-      os.path.join(scen, "town02_all_scenarios.json"),
-      {"Town02": {k: sites for k in ("Scenario7", "Scenario8", "Scenario9",
-                                     "Scenario10")}})
-  return layers
 
 
 @pytest.fixture(autouse=True, scope="module")

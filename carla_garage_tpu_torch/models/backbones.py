@@ -50,16 +50,18 @@ class AffineNorm(nn.Module):
 class ChannelAffineNorm(nn.Module):
   """Per-channel affine over dim 1 of a channel-first map: an inference
   BatchNorm with folded statistics. Parameters ``scale`` and ``bias`` [C],
-  as the JAX AffineNorm's."""
+  as the JAX AffineNorm's. relu=True returns ``torch.relu`` of the output,
+  as ``TpuGroupNorm`` does."""
 
   def __init__(self, channels: int):
     super().__init__()
     self.scale = nn.Parameter(torch.ones(channels))
     self.bias = nn.Parameter(torch.zeros(channels))
 
-  def forward(self, x):
+  def forward(self, x, relu: bool = False):
     shape = (-1,) + (1,) * (x.ndim - 2)
-    return x * self.scale.reshape(shape) + self.bias.reshape(shape)
+    out = x * self.scale.reshape(shape) + self.bias.reshape(shape)
+    return torch.relu(out) if relu else out
 
 
 def make_norm(width: int, norm: str = "gn") -> nn.Module:
@@ -152,8 +154,8 @@ class YBlock(nn.Module):
       self.down_norm = make_norm(width, norm)
 
   def forward(self, x):
-    h = torch.relu(self.norm1(self.conv1(x)))
-    h = torch.relu(self.norm2(self.conv2(h)))
+    h = self.norm1(self.conv1(x), relu=True)
+    h = self.norm2(self.conv2(h), relu=True)
     h = self.se(h)
     h = self.norm3(self.conv3(h))
     if self.has_down:
@@ -169,7 +171,7 @@ class RegNetYStem(nn.Module):
     self.norm = make_norm(stem_w, norm)
 
   def forward(self, x):
-    return torch.relu(self.norm(self.conv(x)))
+    return self.norm(self.conv(x), relu=True)
 
 
 class RegNetYStage(nn.Sequential):

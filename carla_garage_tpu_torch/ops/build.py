@@ -24,7 +24,8 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 # kernel name -> source, relative to the package
 KERNELS = {"raycast_boxes": "csrc/raycast_boxes.cu",
            "fill_boxes_bev": "csrc/fill_boxes_bev.cu",
-           "span_markers": "csrc/span_markers.cu"}
+           "span_markers": "csrc/span_markers.cu",
+           "group_norm": "csrc/group_norm.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",

@@ -1,4 +1,5 @@
-"""Adversarial inputs for the two kernels' culls, made from a seed.
+"""Adversarial inputs for the two kernels' culls, made from a seed, and
+the GroupNorm kernel's shapes on the main path.
 
 The tests hold each cull's plain mirror against the exact test on these
 inputs on the CPU (``tests/test_torch_port_kernel_cull.py``), and each
@@ -9,10 +10,15 @@ corners and running along edges, rays parallel to a box axis (the
 ``r_safe`` branch), vertical rays, origins inside boxes, boxes far away,
 boxes of zero extent, rising rays against tall poles; BEV boxes on tile
 corners, narrower than a pixel, at 45 degrees, partly off the grid, and
-ragged edge tiles. Nothing on the main path imports this module.
+ragged edge tiles. ``regnety_group_norms`` lists the GroupNorm calls of
+a RegNetY branch, which the tests hold the GroupNorm kernel's geometry
+(on the CPU) and the kernel (on the card) to. Nothing on the main path
+imports this module.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -283,3 +289,39 @@ def fill_cases(seed: int = 0) -> dict:
            np.full((2, V), 4.0), np.full((2, V), 1),
            np.where(far, 1.0, 0.0)[None].repeat(2, 0)), 128, 256)
   return cases
+
+
+def regnety_group_norms(batch: int, in_hw, arch: str = "regnety_032"):
+  """Every GroupNorm call of a RegNetY branch (``models/backbones.RegNetY``
+  with norm="gn") on a [batch, _, H, W] input, in call order: (name, map
+  shape, groups, relu). Each stride-2 conv (3x3 padding 1, or 1x1) gives
+  ceil(H / 2) x ceil(W / 2)."""
+  from carla_garage_tpu_torch.models.backbones import arch_spec, make_norm
+  spec = arch_spec(arch)
+  h, w = (math.ceil(v / 2) for v in in_hw)
+  calls = [("stem", (batch, spec["stem_w"], h, w),
+            make_norm(spec["stem_w"]).num_groups, True)]
+  for si, (depth, width) in enumerate(zip(spec["depths"], spec["widths"])):
+    g = make_norm(width).num_groups
+    for bi in range(depth):
+      name = f"stage{si}.b{bi}"
+      calls.append((f"{name}.norm1", (batch, width, h, w), g, True))
+      if bi == 0:
+        h, w = math.ceil(h / 2), math.ceil(w / 2)
+      calls += [(f"{name}.norm2", (batch, width, h, w), g, True),
+                (f"{name}.norm3", (batch, width, h, w), g, False)]
+      if bi == 0:
+        calls.append((f"{name}.down_norm", (batch, width, h, w), g, False))
+  return calls
+
+
+def tfpp_group_norms(batch: int = 16):
+  """The GroupNorm calls of the full-spec TransFuser++ forward
+  (``TransfuserConfig()``): the 256x1024 camera branch's, then the 256x256
+  LiDAR branch's, names prefixed "image." and "lidar."."""
+  from carla_garage_tpu_torch.models.transfuser import TransfuserConfig
+  c = TransfuserConfig()
+  return [(f"{branch}.{name}", shape, g, relu)
+          for branch, hw in (("image", (c.img_h, c.img_w)),
+                             ("lidar", (c.lidar_h, c.lidar_w)))
+          for name, shape, g, relu in regnety_group_norms(batch, hw)]

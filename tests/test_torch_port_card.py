@@ -11,8 +11,8 @@ there is no card:
   ``tests/test_torch_port_train.py``);
 - what only the card can break: a host sync inside a tick or a train
   step, or more than one a chunk in ``rollout_chunked``; the kernels'
-  launches on each path; a B1 or B2 launch that differs from its plain
-  version at full width (``every_launch_checked``);
+  launches on each path; a B1, B2 or B3 launch that differs from its
+  plain version at full width (``every_launch_checked``);
 - the product entry points on the card at their CPU tests' sizes, which
   finds a tensor left on the wrong device.
 
@@ -55,6 +55,7 @@ from carla_garage_tpu_torch.models.plant import PlanT, PlanTConfig, micro_plant
 from carla_garage_tpu_torch.models.video_nets import (SwinTransformer3D,
                                                       VideoResNet)
 from carla_garage_tpu_torch.ops import build
+from carla_garage_tpu_torch.ops import norm as ops_norm
 from carla_garage_tpu_torch.ops.bev_fill import (fill_boxes,
                                                  fill_boxes_bev_plain,
                                                  pack_boxes)
@@ -94,7 +95,8 @@ from carla_garage_tpu_torch.utils.checkpoint import (config_from_meta,
                                                      save_checkpoint)
 from port_inputs import (REGNETY_032, plant_reference_sd,
                          transfuser_reference_sd, write_asset_root)
-from test_torch_port_cuda import cuda, sim_policy, sim_scene  # noqa: F401
+from test_torch_port_cuda import (cuda, gn_within_plain,  # noqa: F401
+                                  sim_policy, sim_scene)
 
 B = 2
 # the committed scene's 100 vehicle slots
@@ -198,7 +200,7 @@ class LaunchCheck:
   bool on the card, read once in ``differing``."""
 
   def __init__(self):
-    self.raycast = self.fill = 0
+    self.raycast = self.fill = self.group_norm = 0
     self.differs = []
 
   def differing(self) -> int:
@@ -207,11 +209,14 @@ class LaunchCheck:
 
 @pytest.fixture
 def every_launch_checked(monkeypatch):
-  """Runs the plain version after every B1 and B2 launch of the test (on
-  card tensors), on the same inputs, and compares on the card (no host
-  sync a launch): the kernels are built with -fmad=false and IEEE division
+  """Runs the plain version after every B1, B2 and B3 launch of the test
+  (on card tensors), on the same inputs, and compares on the card (no host
+  sync a launch). B1 and B2 are built with -fmad=false and IEEE division
   and repeat the plain versions' fp32 operations in order, so they must
-  agree bit for bit."""
+  agree bit for bit; B3 (GroupNorm) sums a group in another order, and its
+  output must lie within ``gn_within_plain``'s bound of the plain
+  version's. A launch inside a CUDA graph's capture puts its comparison in
+  the graph, which each replay then runs again on the replay's inputs."""
   check = LaunchCheck()
   real_rc, real_bev = sensors_raycast.raycast_boxes, \
       sensors_bev.fill_boxes_bev
@@ -235,8 +240,18 @@ def every_launch_checked(monkeypatch):
     check.fill += 1
     return out
 
+  real_gn = ops_norm._launch
+
+  def gn(x, scale, bias, num_groups, eps, relu):
+    y = real_gn(x, scale, bias, num_groups, eps, relu)
+    check.differs.append(
+        ~gn_within_plain(x, y, scale, bias, num_groups, eps, relu))
+    check.group_norm += 1
+    return y
+
   monkeypatch.setattr(sensors_raycast, "raycast_boxes", rc)
   monkeypatch.setattr(sensors_bev, "fill_boxes_bev", bev)
+  monkeypatch.setattr(ops_norm, "_launch", gn)
   return check
 
 
@@ -925,7 +940,9 @@ def test_every_launch_matches_plain_at_full_width(cuda, path,
   three sensor-on ticks (the 1024x256 camera, 29,952-ray LiDAR half
   sweeps), or one training step of two micro-batches on 12 expert frames
   (the full 59,904-ray sweep, the BEV boxes); every B1 and B2 launch equal
-  to its plain version, the state or the losses finite."""
+  to its plain version, every B3 launch within its bound of it (136 a
+  forward: three forwards, eager or a graph's two warm-ups and its
+  capture, or one a micro-batch), the state or the losses finite."""
   maps, lanes, scene, state = committed_scene(cuda, n=16)
   tcfg = ttf.TransfuserConfig()
   torch.manual_seed(0)
@@ -940,7 +957,7 @@ def test_every_launch_matches_plain_at_full_width(cuda, path,
         CFG100, 16, lf.shape[0] * lf.shape[1], device=cuda))
     out = episode.rollout(CFG100, maps, lanes, scene, st, 3, policy,
                           generator=gen)
-    want = (6, 0)
+    want = (6, 0, 3 * 136)
   else:
     _, frames = collect_expert_frames(CFG100, maps, lanes, scene, state, 12,
                                       generator=gen)
@@ -953,9 +970,9 @@ def test_every_launch_matches_plain_at_full_width(cuda, path,
     usable = torch.nonzero(wp_valid.any(-1)).flatten().tolist()
     assert len(usable) >= 2, usable
     out = step(usable[:2], generator=gen)
-    want = (4, 2)
+    want = (4, 2, 2 * 136)
   check = every_launch_checked
-  assert (check.raycast, check.fill) == want
+  assert (check.raycast, check.fill, check.group_norm) == want
   assert check.differing() == 0
   assert all_finite(out)
 

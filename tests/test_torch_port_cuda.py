@@ -1,5 +1,5 @@
-"""On-card tests of the port's CUDA kernels against their plain versions,
-of the models' forwards replayed as CUDA graphs
+"""On-card tests of the port's CUDA kernels (B1, B2 and the GroupNorm
+kernel) against their plain versions, of the models' forwards replayed as CUDA graphs
 (``utils/cuda_graph.GraphedForward``) against their eager forwards, and of
 the simulator's tick after the policy replayed as CUDA graphs
 (``GraphedStages`` in ``sim/episode.sim_step``) against its eager tick.
@@ -28,6 +28,7 @@ from carla_garage_tpu_torch.ops import kernel_cases
 from carla_garage_tpu_torch.ops.bev_fill import (fill_boxes,
                                                  fill_boxes_bev_plain,
                                                  pack_boxes)
+from carla_garage_tpu_torch.ops.norm import group_norm, group_norm_plain
 from carla_garage_tpu_torch.ops.raycast import (raycast_boxes,
                                                 raycast_boxes_plain)
 from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
@@ -189,6 +190,223 @@ def test_fill_kernel_rejects_bad_input(cuda):
     fill_boxes(bx.transpose(0, 1).contiguous().transpose(0, 1), 8, 8)
   with pytest.raises(ValueError):
     fill_boxes(bx, 0, 8)
+
+
+# --- the GroupNorm kernel -------------------------------------------------
+
+GN_SHAPES = sorted({(s, g) for _, s, g, _ in kernel_cases.tfpp_group_norms(16)})
+# S = 49 (no whole 16-byte loads: one element a load), groups equal to
+# channels, a 5-D NCTHW map, a contiguous group of 1,048,576 elements (43
+# CTAs of the second kernel in bf16), 3 channels and 63 positions, a
+# 1,512-channel sample
+GN_EDGE = [((2, 16, 7, 7), 16), ((2, 64, 4, 8, 8), 32), ((2, 8, 512, 512), 2),
+           ((3, 6, 7, 9), 3), ((2, 1512, 3, 5), 28)]
+LAYOUTS = {4: torch.channels_last, 5: torch.channels_last_3d}
+
+
+def gn_case(shape, dtype, layout, seed=0):
+  """(x, scale, bias) on the card: x normal with mean 0.7 and deviation 2,
+  in `layout` ("contiguous" or "channels_last"); scale in [-1.5, 2], bias
+  in [-0.5, 0.5], both in x's dtype as a bf16 model's are."""
+  g = torch.Generator(device="cuda").manual_seed(seed)
+  x = (torch.randn(shape, device="cuda", generator=g) * 2.0 + 0.7).to(dtype)
+  if layout == "channels_last":
+    x = x.contiguous(memory_format=LAYOUTS[len(shape)])
+  C = shape[1]
+  return (x, torch.linspace(-1.5, 2.0, C, device="cuda").to(dtype),
+          torch.linspace(0.5, -0.5, C, device="cuda").to(dtype))
+
+
+# The kernel sums a group's elements in another order than the plain
+# version (a thread's share of a CTA's rows, the block, then the CTAs;
+# torch's channel means, then their mean): each version adds at most a few
+# hundred terms in a chain, so each float32 sum lies within SUM_ORDER of
+# the sum of |x| (of x^2). F32_EPS: float32's machine epsilon.
+SUM_ORDER = 1e-5
+F32_EPS = 2.0 ** -23
+
+
+def gn_within_plain(x, y, scale, bias, groups, eps, relu):
+  """A bool on the card: True where the kernel's output y of x lies within
+  what the plain version's float32 arithmetic gives with the group's sums
+  taken in another order. With the group's mean m, E[x^2] q and variance v
+  from the plain version, sums off by SUM_ORDER move the mean by up to
+  SUM_ORDER sqrt(q) and 1 / sqrt(v + eps) by up to 2 SUM_ORDER q / (v + eps)
+  of itself (to first order), so y = x a + b by up to SUM_ORDER |a| (sqrt(q)
+  + 2 |x - m| q / (v + eps)), plus a few float32 roundings of x a and b.
+  The bound thus widens where the group's mean is large against its
+  deviation, where E[x^2] - E[x]^2 loses digits in both versions alike.
+  The output is then the rounding to x's dtype (monotone), after the ReLU
+  (monotone): between the roundings of the bounds. In bf16 an element can
+  differ from the plain version's only by one bf16 unit, and only where
+  its float32 value lies that close to a rounding boundary."""
+  B, C = x.shape[:2]
+  shape = (B, C) + (1,) * (x.ndim - 2)
+  spatial = tuple(range(2, x.ndim))
+  xf = x.float()
+
+  def per_group(m):
+    return m.reshape(B, groups, -1).mean(-1).repeat_interleave(
+        C // groups, -1).reshape(shape)
+
+  mean = per_group(xf.mean(spatial))
+  sq = per_group(xf.square().mean(spatial))
+  var = torch.clamp(sq - mean.square(), min=0.0)
+  a = torch.rsqrt(var + eps) * scale.float().reshape(shape[1:])
+  b = bias.float().reshape(shape[1:]) - mean * a
+  z = xf * a + b
+  slack = SUM_ORDER * a.abs() * (
+      sq.sqrt() + 2.0 * (xf - mean).abs() * sq / (var + eps)) + \
+      4.0 * F32_EPS * ((xf * a).abs() + b.abs() + (mean * a).abs())
+  lo, hi = z - slack, z + slack
+  if relu:
+    lo, hi = torch.relu(lo), torch.relu(hi)
+  yf = y.float()
+  return ((yf >= lo.to(x.dtype).float()) & (yf <= hi.to(x.dtype).float())
+          ).all()
+
+
+def _gn_equals_plain(x, scale, bias, groups, relu):
+  before = group_norm.launches
+  y = group_norm(x, scale, bias, groups, 1e-6, relu)
+  torch.cuda.synchronize()
+  assert group_norm.launches == before + 1
+  ref = group_norm_plain(x, scale, bias, groups, 1e-6, relu)
+  assert y.dtype == x.dtype and y.shape == x.shape
+  assert y.stride() == x.stride()
+  assert bool(gn_within_plain(x, y, scale, bias, groups, 1e-6, relu))
+  # The kernel sums a group's elements in another order than the plain
+  # version's channel means and their mean, so the float32 moments, and the
+  # outputs before rounding, differ by a few units in the last place: in
+  # float32 within 1e-5 relative. In bf16 a value that close to a rounding
+  # boundary then rounds one bf16 unit (2^-8 to 2^-7 relative) the other
+  # way: within 2^-7 relative, on at most 0.1% of the elements.
+  y, ref = y.float(), ref.float()
+  gap = (y - ref).abs()
+  rel = 2.0 ** -7 if x.dtype == torch.bfloat16 else 1e-5
+  assert bool((gap <= rel * ref.abs() + 1e-5).all()), float(gap.max())
+  assert float((gap > 0).float().mean()) <= (
+      1e-3 if x.dtype == torch.bfloat16 else 1.0)
+  if relu:
+    assert float(y.min()) == 0.0
+
+
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+@pytest.mark.parametrize("shape,groups", GN_SHAPES)
+def test_group_norm_kernel_matches_plain(cuda, shape, groups, layout):
+  """Every GroupNorm shape of both full-spec RegNetY-032 branches at B=16
+  (the camera's and the LiDAR's), in the main path's channels-last layout
+  and contiguous, in bf16 and float32, with the ReLU off and on."""
+  for dtype in (torch.bfloat16, torch.float32):
+    x, scale, bias = gn_case(shape, dtype, layout, seed=shape[1])
+    for relu in (False, True):
+      _gn_equals_plain(x, scale, bias, groups, relu)
+
+
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+@pytest.mark.parametrize("shape,groups", GN_EDGE)
+def test_group_norm_kernel_edge_shapes(cuda, shape, groups, layout):
+  for dtype in (torch.bfloat16, torch.float32):
+    x, scale, bias = gn_case(shape, dtype, layout, seed=1)
+    for relu in (False, True):
+      _gn_equals_plain(x, scale, bias, groups, relu)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_kernel_unaligned(cuda, dtype):
+  """A map that starts off a 16-byte boundary runs one element a load."""
+  x, scale, bias = gn_case((2, 72, 16, 32), dtype, "contiguous")
+  flat = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+  shifted = flat[1:].view(x.shape)
+  shifted.copy_(x)
+  assert shifted.data_ptr() % 16
+  _gn_equals_plain(shifted, scale, bias, 24, True)
+
+
+@pytest.mark.parametrize("shape,groups,layout", [
+    ((16, 72, 128, 512), 24, "channels_last"),   # the largest map
+    ((2, 1512, 3, 5), 28, "channels_last"),      # one row of C a CTA
+    ((16, 72, 128, 512), 24, "contiguous"),      # 8 CTAs a group
+    ((2, 16, 7, 7), 16, "contiguous")])          # one element a load
+def test_group_norm_kernel_graph_replay(cuda, shape, groups, layout):
+  """A replay under torch.cuda.graph equals the eager call on the same
+  input, bit for bit: the kernel's sums run in a fixed order."""
+  x, scale, bias = gn_case(shape, torch.bfloat16, layout)
+  static = x.clone()
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    for _ in range(2):
+      group_norm(static, scale, bias, groups, 1e-6, True)
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    out = group_norm(static, scale, bias, groups, 1e-6, True)
+  fresh, _, _ = gn_case(shape, torch.bfloat16, layout, seed=7)
+  static.copy_(fresh)
+  graph.replay()
+  eager = group_norm(fresh, scale, bias, groups, 1e-6, True)
+  torch.cuda.synchronize()
+  assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+def test_group_norm_kernel_gradients(cuda, layout, relu):
+  """The autograd.Function's backward differentiates the plain version on
+  the saved input: its gradients are the plain version's, to the order of
+  the atomic additions in the plain version's own backward."""
+  x0, s0, b0 = gn_case((4, 72, 32, 48), torch.float32, layout)
+  dy = torch.randn(x0.shape, device="cuda").contiguous(
+      memory_format=LAYOUTS[4] if layout == "channels_last" else
+      torch.contiguous_format)
+  grads = []
+  for fn in (group_norm, group_norm_plain):
+    leaves = [t.clone().requires_grad_(True) for t in (x0, s0, b0)]
+    fn(*leaves, 24, 1e-6, relu).backward(dy)
+    grads.append([t.grad for t in leaves])
+  for got, want in zip(*grads):
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_group_norm_kernel_rejects_bad_input(cuda):
+  x, scale, bias = gn_case((2, 72, 16, 32), torch.bfloat16, "contiguous")
+  with pytest.raises(ValueError):              # neither layout
+    group_norm(x[:, :, ::2], scale, bias, 24)
+  with pytest.raises(ValueError):
+    group_norm(x.transpose(2, 3), scale, bias, 24)
+  with pytest.raises(TypeError):
+    group_norm(x.double(), scale.double(), bias.double(), 24)
+  with pytest.raises(TypeError):
+    group_norm(x.half(), scale.half(), bias.half(), 24)
+  with pytest.raises(TypeError):
+    group_norm(x, scale.float(), bias, 24)
+  with pytest.raises(ValueError):              # parameters on the host
+    group_norm(x, scale.cpu(), bias.cpu(), 24)
+  with pytest.raises(ValueError):
+    group_norm(x, scale, bias, 25)
+  with pytest.raises(ValueError):
+    group_norm(x, scale[:-1], bias[:-1], 24)
+
+
+@pytest.mark.parametrize("kind,want", [("tfpp", 136), ("tfpp_vswin", 68)])
+def test_group_norm_launches_a_forward(cuda, kind, want):
+  """One launch for each GroupNorm of the full-spec bf16 forward: both
+  RegNetY-032 branches of TransFuser++, the camera branch alone with the
+  Video Swin-T LiDAR branch (LayerNorms)."""
+  torch.manual_seed(0)
+  c = ttf.VideoTransfuserConfig() if kind == "tfpp_vswin" else \
+      ttf.TransfuserConfig()
+  model = ttf.LidarCenterNet(c).to(cuda, torch.bfloat16).eval()
+  K = ttf.lidar_history(c)
+  x = (torch.rand(2, c.img_h, c.img_w, 3) * 255,
+       torch.rand(2, c.lidar_h, c.lidar_w, c.lidar_channels * K),
+       torch.zeros(2, 2), torch.eye(6)[[1, 2]], torch.zeros(2))
+  before = group_norm.launches
+  with torch.no_grad():
+    model(*(t.to(cuda, torch.bfloat16) for t in x))
+  torch.cuda.synchronize()
+  assert group_norm.launches - before == want
 
 
 # --- the forward as a CUDA graph ------------------------------------------

@@ -10,17 +10,23 @@ from carla_garage_tpu_torch.sim.pid import PIDParams, pid_step
 from carla_garage_tpu_torch.structs import PIDState
 
 
+def waypoint_speed(waypoints: torch.Tensor) -> torch.Tensor:
+  """The desired speed [B] of waypoints [B,P,2] at 4 Hz: the distance
+  from the half-second to the one-second waypoint, per second."""
+  one_second = 4
+  half_second = 2
+  return torch.linalg.vector_norm(
+      waypoints[:, half_second - 1] - waypoints[:, one_second - 1],
+      dim=-1) * 2.0
+
+
 def control_pid(pid_turn: PIDState, pid_speed: PIDState,
                 waypoints: torch.Tensor, speed: torch.Tensor,
                 cfg: GlobalConfig):
   """Waypoint-output controller. waypoints [B,P,2] ego-frame future
   positions at 4 Hz; speed [B]. Returns (steer, throttle, brake, states...)."""
   e = cfg.expert
-  one_second = 4
-  half_second = 2
-  desired_speed = torch.linalg.vector_norm(
-      waypoints[:, half_second - 1] - waypoints[:, one_second - 1],
-      dim=-1) * 2.0
+  desired_speed = waypoint_speed(waypoints)
   brake = (desired_speed < 0.4) | \
       ((speed / torch.clamp(desired_speed, min=1e-6)) > e.brake_ratio)
   delta = torch.clamp(desired_speed - speed, 0.0, e.clip_delta)

@@ -13,6 +13,14 @@ frames voxelized), ``agent.model``
 (the forward with its casts and the ensemble's mean) and
 ``agent.control``.
 
+A camera-only vision-language-action model (``models.vla.SimLingo``,
+its config a ``SimLingoConfig``) goes through the same policy: the
+camera frame becomes InternVL2's 448-pixel tiles and thumbnail
+(``camera_tiles``), the model takes two target points and no LiDAR BEV
+(the half sweep is still rendered for the creep recovery's safety box),
+and the controller steers at a point of its predicted path and takes
+the speed from its speed waypoints.
+
 The three random draws of a tick (GNSS noise, compass noise, LiDAR
 dropoff uniforms) come from the caller's ``torch.Generator``, or as
 tensors in ``draws`` under the keys of ``DRAW_KEYS``, so that a test can
@@ -37,15 +45,19 @@ import torch
 import torch.nn.functional as F
 
 from carla_garage_tpu_torch.agents.controllers import (control_pid,
-                                                       control_pid_direct)
+                                                       control_pid_direct,
+                                                       waypoint_speed)
 from carla_garage_tpu_torch.config import GlobalConfig
 from carla_garage_tpu_torch.device import const, resolve_device
 from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
-                                                      TransfuserConfig)
+                                                      TransfuserConfig,
+                                                      lidar_history)
+from carla_garage_tpu_torch.models.vla import SimLingoConfig
 from carla_garage_tpu_torch.ops.detection import topk_decode
 from carla_garage_tpu_torch.ops.jpeg import jpeg_artifacts
-from carla_garage_tpu_torch.sensors.camera import render_camera
-from carla_garage_tpu_torch.sensors.lidar import render_lidar
+from carla_garage_tpu_torch.sensors.camera import (camera_ray_grid,
+                                                   render_camera)
+from carla_garage_tpu_torch.sensors.lidar import lidar_ray_grid, render_lidar
 from carla_garage_tpu_torch.sensors.voxelize import voxelize
 from carla_garage_tpu_torch.sim import geometry as geo
 from carla_garage_tpu_torch.sim.expert import (Control, _dense_planner_params,
@@ -64,6 +76,9 @@ COMPASS_NOISE = 0.001
 TARGET_SPEEDS = (0.0, 2.0, 5.0, 8.0)   # m/s of the target-speed classes
 # draws: gps [B,2] and compass [B] standard normals, lidar [B,N] uniforms
 DRAW_KEYS = ("gps", "compass", "lidar")
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+PATH_AIM = 2                 # the path point (1 m apart) a VLA steers at
 
 
 @dataclasses.dataclass
@@ -129,6 +144,36 @@ def voxelize_older(points: torch.Tensor, valid: torch.Tensor,
   return bev.reshape(B, 2 * (K - 1), *bev.shape[2:])
 
 
+def camera_tiles(rgb: torch.Tensor, tile: int) -> torch.Tensor:
+  """InternVL2's ``dynamic_preprocess`` of a frame whose sides are whole
+  multiples of `tile` (its closest aspect ratio is its own, so nothing is
+  resized): rgb [B,H,W,3] in 0..1 -> [B,T,3,tile,tile], the tiles row by
+  row, then (with more than one) the whole frame resized to one tile by
+  antialiased bicubic, each normalized by the ImageNet mean and std."""
+  B, H, W, _ = rgb.shape
+  rows, cols = H // tile, W // tile
+  if rows * tile != H or cols * tile != W:
+    raise ValueError(f"a {W}x{H} frame is no whole number of {tile}-pixel "
+                     "tiles")
+  x = rgb.permute(0, 3, 1, 2)
+  tiles = x.reshape(B, 3, rows, tile, cols, tile).permute(0, 2, 4, 1, 3, 5) \
+      .reshape(B, rows * cols, 3, tile, tile)
+  if rows * cols > 1:
+    thumb = F.interpolate(x, size=(tile, tile), mode="bicubic",
+                          align_corners=False, antialias=True)
+    tiles = torch.cat([tiles, thumb[:, None]], 1)
+  mean = const(IMAGENET_MEAN, rgb.device, rgb.dtype)[:, None, None]
+  std = const(IMAGENET_STD, rgb.device, rgb.dtype)[:, None, None]
+  return (tiles - mean) / std
+
+
+def path_speed(pred_wp: torch.Tensor) -> torch.Tensor:
+  """A VLA's target speed from its speed waypoints: ``control_pid``'s
+  desired speed, 0 (a brake) where ``control_pid`` brakes for it."""
+  desired = waypoint_speed(pred_wp)
+  return torch.where(desired < 0.4, 0.0, desired)
+
+
 def command_onehot(cmd: torch.Tensor) -> torch.Tensor:
   """6-way one-hot of RoadOption values 1..6."""
   return F.one_hot((torch.clamp(cmd, 1, 6) - 1).long(), 6).to(torch.float32)
@@ -163,7 +208,11 @@ def make_transfuser_policy(model: LidarCenterNet, params,
                            jpeg_quality: int | None = None):
   """The sensor pipeline + model + control as a policy for ``sim_step``.
 
-  model: a LidarCenterNet on the device the policy runs on. params: None
+  model: a LidarCenterNet on the device the policy runs on, or a
+  ``SimLingo`` with its ``SimLingoConfig`` as `tcfg` (camera only, two
+  target points, the path-and-speed controller; `direct`,
+  `uncertainty_weight`, `brake_threshold` and `stop_control` do not
+  apply to it). params: None
   to drive with the model's own weights, a state dict, or a list of state
   dicts (an ensemble whose outputs are averaged). bf16=True runs the
   forward in bfloat16 (weights and inputs cast, outputs cast back to
@@ -189,12 +238,12 @@ def make_transfuser_policy(model: LidarCenterNet, params,
   g_rear = torch.as_tensor(lidar_grid_rear, device=dev).reshape(-1, 3)
   target_speeds = const(TARGET_SPEEDS, dev)
 
-  def fwd(m, rgb, lidar_bev, target_point, cmd_oh, speed):
+  vla = isinstance(tcfg, SimLingoConfig)
+
+  def fwd(m, *inputs):
     if not bf16:
-      return m(rgb, lidar_bev, target_point, cmd_oh, speed)
-    cast = lambda x: x.to(torch.bfloat16)
-    out = m(cast(rgb), cast(lidar_bev), cast(target_point), cast(cmd_oh),
-            cast(speed))
+      return m(*inputs)
+    out = m(*(x.to(torch.bfloat16) for x in inputs))
     return tree_map(lambda x: x.to(torch.float32, copy=True), out)
 
   @torch.no_grad()
@@ -236,6 +285,13 @@ def make_transfuser_policy(model: LidarCenterNet, params,
       tp_world, cmd = route_lookup(route.sparse_points, route.sparse_cmd,
                                    route.sparse_num_valid, pl_sparse.idx, 1)
       target_point = geo.world_to_ego(tp_world, pos_f, yaw_f)
+      if vla:
+        # the target point after it too: [B,2,2]
+        tp2_world, _ = route_lookup(route.sparse_points, route.sparse_cmd,
+                                    route.sparse_num_valid, pl_sparse.idx,
+                                    2)
+        target_point = torch.stack(
+            [target_point, geo.world_to_ego(tp2_world, pos_f, yaw_f)], 1)
 
     with span("agent.inputs"):
       # --- sensors: the camera, then the front or rear LiDAR half by tick
@@ -243,6 +299,8 @@ def make_transfuser_policy(model: LidarCenterNet, params,
       cam = render_camera(cfg, maps, scene, state, cam_grid)
       if jpeg_quality is not None:
         cam = dict(cam, rgb=jpeg_artifacts(cam["rgb"], quality=jpeg_quality))
+      if vla:
+        tiles = camera_tiles(cam["rgb"], tcfg.tile)
       even = (state.tick % 2 == 0)[:, None, None]
       grid_sel = torch.where(even, g_front[None], g_rear[None])
       pts_now, val_now = render_lidar(cfg, maps, scene, state, grid_sel,
@@ -262,33 +320,40 @@ def make_transfuser_policy(model: LidarCenterNet, params,
         older = voxelize_older(prev_pts, ag.prev_lidar_valid, cfg)
       merged_pts = torch.cat([pts_now, prev_pts[:, 0]], 1)
       merged_val = torch.cat([val_now, ag.prev_lidar_valid[:, 0]], 1)
-      lidar_bev = voxelize(merged_pts, merged_val, cfg)
-      # the newest buffered sweep merges with the live one; older sweeps
-      # voxelize into extra channel pairs
-      if older is not None:
-        lidar_bev = torch.cat([lidar_bev, older], 1)
-      lidar_bev = lidar_bev.permute(0, 2, 3, 1)
+      if not vla:
+        lidar_bev = voxelize(merged_pts, merged_val, cfg)
+        # the newest buffered sweep merges with the live one; older sweeps
+        # voxelize into extra channel pairs
+        if older is not None:
+          lidar_bev = torch.cat([lidar_bev, older], 1)
+        lidar_bev = lidar_bev.permute(0, 2, 3, 1)
 
     with span("agent.model"):
       # --- model forward, averaged over the ensemble ---
       cmd_oh = command_onehot(cmd)
-      outs = [fwd(m, cam["rgb"], lidar_bev, target_point, cmd_oh, ego.speed)
-              for m in members]
+      inputs = (tiles, target_point, ego.speed, cmd_oh) if vla else \
+          (cam["rgb"], lidar_bev, target_point, cmd_oh, ego.speed)
+      outs = [fwd(m, *inputs) for m in members]
       out = tree_map(lambda *xs: sum(xs) / len(xs), *outs)
 
     with span("agent.control"):
       # --- control ---
-      if direct:
+      if vla:
+        ts = path_speed(out["pred_wp"])
+      elif direct:
         probs = torch.softmax(out["pred_target_speed"], -1)
         if uncertainty_weight:
           ts = torch.sum(probs * target_speeds, -1)       # expectation
           ts = torch.where(probs[:, 0] > brake_threshold, 0.0, ts)
         else:
           ts = target_speeds[torch.argmax(probs, -1)]
+      if vla or direct:
         if map_track:
           aim_world, _ = route_lookup(route.points, route.cmd,
                                       route.num_valid, pl_dense.idx, 4)
           aim = geo.world_to_ego(aim_world, pos_f, yaw_f)
+        elif vla:
+          aim = out["pred_path"][:, PATH_AIM]
         else:
           aim = out["pred_checkpoint"][:, 2]              # ~2nd checkpoint
         angle = torch.rad2deg(torch.atan2(aim[:, 1], aim[:, 0])) / 90.0
@@ -348,6 +413,39 @@ def make_transfuser_policy(model: LidarCenterNet, params,
   policy.draw_specs = (("gps", (2,), "normal"), ("compass", (), "normal"),
                        ("lidar", (g_front.shape[0],), "uniform"))
   return policy
+
+
+def sensor_grids(cfg: GlobalConfig, tcfg, camera_scale: int = 1,
+                 lidar_decimate: int = 1) -> tuple:
+  """The ray grids (camera, LiDAR front half, LiDAR rear half) of
+  `cfg`'s sensor rig; a VLA's camera is its own (``SimLingoConfig``'s
+  ``camera_*``: InternVL2's tiling needs whole tiles)."""
+  if isinstance(tcfg, SimLingoConfig):
+    cfg = cfg.replace(sensor=dataclasses.replace(
+        cfg.sensor, camera_width=tcfg.camera_width,
+        camera_height=tcfg.camera_height, camera_fov=tcfg.camera_fov))
+  return (camera_ray_grid(cfg, scale=camera_scale),
+          lidar_ray_grid(cfg, half=0, decimate=lidar_decimate),
+          lidar_ray_grid(cfg, half=1, decimate=lidar_decimate))
+
+
+def make_sensor_policy(model, params, tcfg, grids: tuple, **policy_kw):
+  """(policy, reset): ``make_transfuser_policy`` over the ray grids
+  `grids` (``sensor_grids``) and ``reset(cfg, B, device)``, the agent
+  state it starts from, with the LiDAR history the model takes (one half
+  sweep for a camera-only model, which keeps it for the creep
+  recovery's safety box)."""
+  cam, lid_f, lid_r = grids
+  policy = make_transfuser_policy(model, params, tcfg, cam, lid_f, lid_r,
+                                  **policy_kw)
+  n_lidar = lid_f.shape[0] * lid_f.shape[1]
+  seq_len = 1 if isinstance(tcfg, SimLingoConfig) else lidar_history(tcfg)
+
+  def reset(cfg: GlobalConfig, B: int, device="cuda") -> SensorAgentState:
+    return sensor_agent_reset(cfg, B, n_lidar, seq_len=seq_len,
+                              device=device)
+
+  return policy, reset
 
 
 def _stop_controller(cfg: GlobalConfig, pred_bb: dict, ag: SensorAgentState,

@@ -106,12 +106,9 @@ def _sensor_setup(full_spec: bool, batch: int | None, dev: torch.device):
   ray grids (cam, lid_f, lid_r), and a scene of 100 NPCs an episode with
   the agent reset (maps, lanes, scene, state)."""
   from carla_garage_tpu_torch.agents.sensor_agent import (
-      make_transfuser_policy, sensor_agent_reset)
+      make_sensor_policy, sensor_grids)
   from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
-                                                        TransfuserConfig,
-                                                        lidar_history)
-  from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
-  from carla_garage_tpu_torch.sensors.lidar import lidar_ray_grid
+                                                        TransfuserConfig)
   from carla_garage_tpu_torch.sim.scene_builder import make_synthetic_batch
   if full_spec:
     cam_scale, lid_dec, B = 1, 1, batch or FULL_B
@@ -121,20 +118,16 @@ def _sensor_setup(full_spec: bool, batch: int | None, dev: torch.device):
     tcfg = reduced_config()
   # honest traffic density: 100 town-wide NPCs an episode
   cfg = CFG.replace(sim=dataclasses.replace(CFG.sim, max_vehicles=100))
-  cam = camera_ray_grid(cfg, scale=cam_scale)
-  lid_f = lidar_ray_grid(cfg, half=0, decimate=lid_dec)
-  lid_r = lidar_ray_grid(cfg, half=1, decimate=lid_dec)
+  cam, lid_f, lid_r = sensor_grids(cfg, tcfg, cam_scale, lid_dec)
   with torch.random.fork_rng(devices=[]):
     torch.manual_seed(0)
     model = LidarCenterNet(tcfg)
   model = model.to(dev)
   _, maps, lanes, scene, state = make_synthetic_batch(
       cfg, batch=B, seed=0, n_vehicles=100, n_walkers=2, device=dev)
-  n_lidar = lid_f.shape[0] * lid_f.shape[1]
-  state = state.replace(agent=sensor_agent_reset(
-      cfg, B, n_lidar, seq_len=lidar_history(tcfg), device=dev))
-  policy = make_transfuser_policy(model, None, tcfg, cam, lid_f, lid_r,
-                                  direct=True, bf16=True)
+  policy, reset = make_sensor_policy(model, None, tcfg, (cam, lid_f, lid_r),
+                                     direct=True, bf16=True)
+  state = state.replace(agent=reset(cfg, B, device=dev))
   return types.SimpleNamespace(cfg=cfg, tcfg=tcfg, model=model,
                                policy=policy, cam=cam, lid_f=lid_f,
                                lid_r=lid_r, maps=maps, lanes=lanes,

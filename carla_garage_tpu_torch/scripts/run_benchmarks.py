@@ -62,10 +62,11 @@ def parse_args(argv=None):
                   help="write per-town infraction maps and replay clips "
                        "here (needs matplotlib)")
   ap.add_argument("--agent", default="expert",
-                  choices=["expert", "transfuser", "plant"],
+                  choices=["expert", "transfuser", "plant", "simlingo"],
                   help="expert = privileged autopilot; transfuser = a "
                        "trained sensor-fusion checkpoint (--checkpoint); "
-                       "plant = a trained object-level PlanT checkpoint")
+                       "plant = a trained object-level PlanT checkpoint; "
+                       "simlingo = a camera-only SimLingo checkpoint")
   ap.add_argument("--checkpoint", default=None,
                   help="a checkpoint directory saved by this package's "
                        "train_transfuser / train_plant (state.pt + "
@@ -118,29 +119,25 @@ def build_agent(args, device):
         brake_threshold=args.uncertainty_threshold)
     return policy, plant_agent_reset
   from carla_garage_tpu_torch.agents.sensor_agent import (
-      make_transfuser_policy, sensor_agent_reset)
-  from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
-                                                        TransfuserConfig,
-                                                        lidar_history)
-  from carla_garage_tpu_torch.sensors.camera import camera_ray_grid
-  from carla_garage_tpu_torch.sensors.lidar import lidar_ray_grid
+      make_sensor_policy, sensor_grids)
   base = GlobalConfig()
-  tcfg = config_from_meta(dict(meta, model="transfuser")) if has_cfg \
-      else TransfuserConfig()
-  cam_scale = max(base.sensor.camera_height // tcfg.img_h, 1)
-  lid_dec = cam_scale
-  model = LidarCenterNet(tcfg)
+  if args.agent == "simlingo":
+    from carla_garage_tpu_torch.models.vla import SimLingo, SimLingoConfig
+    tcfg = config_from_meta(dict(meta, model="simlingo")) if has_cfg \
+        else SimLingoConfig()
+    model, scale = SimLingo(tcfg), 1
+  else:
+    from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
+                                                          TransfuserConfig)
+    tcfg = config_from_meta(dict(meta, model="transfuser")) if has_cfg \
+        else TransfuserConfig()
+    model = LidarCenterNet(tcfg)
+    scale = max(base.sensor.camera_height // tcfg.img_h, 1)
   load_checkpoint(args.checkpoint, model)
-  cam_grid = camera_ray_grid(base, scale=cam_scale)
-  lid_f = lidar_ray_grid(base, half=0, decimate=lid_dec)
-  lid_r = lidar_ray_grid(base, half=1, decimate=lid_dec)
-  n_lidar = lid_f.shape[0] * lid_f.shape[1]
-  policy = make_transfuser_policy(
-      model.to(device), None, tcfg, cam_grid, lid_f, lid_r, direct=True,
-      bf16=True, brake_threshold=args.uncertainty_threshold,
+  return make_sensor_policy(
+      model.to(device), None, tcfg, sensor_grids(base, tcfg, scale, scale),
+      direct=True, bf16=True, brake_threshold=args.uncertainty_threshold,
       jpeg_quality=args.jpeg_quality)
-  return policy, (lambda cfg_, B, device: sensor_agent_reset(
-      cfg_, B, n_lidar, seq_len=lidar_history(tcfg), device=device))
 
 
 def run(args, device="cuda", assets_root: str | None = None) -> dict:

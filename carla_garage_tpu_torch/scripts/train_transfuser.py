@@ -41,15 +41,13 @@ import time
 import numpy as np
 import torch
 
-from carla_garage_tpu_torch.agents.sensor_agent import (
-    make_transfuser_policy, sensor_agent_reset)
+from carla_garage_tpu_torch.agents.sensor_agent import make_sensor_policy
 from carla_garage_tpu_torch.bench import reduced_config
 from carla_garage_tpu_torch.config import DEFAULT_CONFIG
 from carla_garage_tpu_torch.device import resolve_device
 from carla_garage_tpu_torch.maps import importer
 from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
-                                                      TransfuserConfig,
-                                                      lidar_history)
+                                                      TransfuserConfig)
 from carla_garage_tpu_torch.scripts.train_plant import (CHUNK, batch_mean,
                                                         collect_chunked,
                                                         quality_gate,
@@ -168,12 +166,10 @@ def build_dagger_dataset(cfg, args, tcfg, model, cam_grid, lid_f, lid_r,
       min_route_m=args.min_route_m, max_route_m=args.max_route_m,
       use_scenarios=not args.no_scenarios, assets_root=args.assets_root,
       device=dev)
-  n_lidar = lid_f.shape[0] * lid_f.shape[1]
-  policy = make_transfuser_policy(model, None, tcfg, cam_grid, lid_f, lid_r,
-                                  direct=True, bf16=True,
-                                  brake_threshold=0.33)
-  st = state.replace(agent=sensor_agent_reset(
-      cfg, args.episodes, n_lidar, seq_len=lidar_history(tcfg), device=dev))
+  policy, reset = make_sensor_policy(model, None, tcfg,
+                                     (cam_grid, lid_f, lid_r), direct=True,
+                                     bf16=True, brake_threshold=0.33)
+  st = state.replace(agent=reset(cfg, args.episodes, device=dev))
   gen = torch.Generator(device=dev).manual_seed(seed)
   _, frames = collect_chunked(
       lambda s: collect_dagger_frames(cfg, maps, lanes, scene, s, policy,
@@ -219,12 +215,11 @@ def closed_loop_eval(cfg, args, tcfg, model, params, cam_grid, lid_f, lid_r,
       use_scenarios=not args.no_scenarios,
       pad_hw=pad_hw, crop_hw=crop_hw, crop_margin_m=args.crop_margin_m,
       assets_root=args.assets_root, device=dev)
-  n_lidar = lid_f.shape[0] * lid_f.shape[1]
-  policy = make_transfuser_policy(model, params, tcfg, cam_grid, lid_f,
-                                  lid_r, direct=True, bf16=True,
-                                  brake_threshold=brake_threshold)
-  st = state.replace(agent=sensor_agent_reset(
-      cfg, n_routes, n_lidar, seq_len=lidar_history(tcfg), device=dev))
+  policy, reset = make_sensor_policy(model, params, tcfg,
+                                     (cam_grid, lid_f, lid_r), direct=True,
+                                     bf16=True,
+                                     brake_threshold=brake_threshold)
+  st = state.replace(agent=reset(cfg, n_routes, device=dev))
   final = rollout_chunked(cfg, maps, lanes, scene, st, max_ticks,
                           chunk=chunk, policy=policy,
                           generator=torch.Generator(

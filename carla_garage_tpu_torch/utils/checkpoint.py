@@ -20,8 +20,10 @@ import torch
 from carla_garage_tpu_torch.models.plant import PlanTConfig
 from carla_garage_tpu_torch.models.transfuser import (
     VIDEO_SWIN, TransfuserConfig, VideoTransfuserConfig)
+from carla_garage_tpu_torch.models.vla import SimLingoConfig
 
-CONFIGS = {"transfuser": TransfuserConfig, "plant": PlanTConfig}
+CONFIGS = {"transfuser": TransfuserConfig, "plant": PlanTConfig,
+           "simlingo": SimLingoConfig}
 
 
 def cpu_state(model_or_state_dict) -> dict:
@@ -81,12 +83,13 @@ def _tuples(v):
 
 
 def config_from_meta(meta: dict):
-  """The TransfuserConfig or PlanTConfig a checkpoint was saved with, from
-  its meta.json: ``meta["model"]`` names the class and ``meta["config"]``
-  holds its fields (missing ones take their defaults); a TransfuserConfig
-  with ``lidar_arch="video_swin_t"`` is a VideoTransfuserConfig. JSON
-  lists become tuples again, so the result equals and hashes like the
-  saved config. Raises on an unknown model or field."""
+  """The TransfuserConfig, PlanTConfig or SimLingoConfig a checkpoint was
+  saved with, from its meta.json: ``meta["model"]`` names the class and
+  ``meta["config"]`` holds its fields (missing ones take their defaults);
+  a TransfuserConfig with ``lidar_arch="video_swin_t"`` is a
+  VideoTransfuserConfig. JSON lists become tuples again, so the result
+  equals and hashes like the saved config. Raises on an unknown model or
+  field."""
   cls = CONFIGS.get(meta.get("model"))
   if cls is None:
     raise ValueError(f"meta.json model {meta.get('model')!r}: expected one "

@@ -14,6 +14,8 @@ This file imports no JAX, so it runs on a machine without it:
 
 import contextlib
 import dataclasses
+import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ from carla_garage_tpu_torch.agents import sensor_agent as sa
 from carla_garage_tpu_torch.config import DEFAULT_CONFIG as CFG
 from carla_garage_tpu_torch.models import transfuser as ttf
 from carla_garage_tpu_torch.models.plant import PlanT, PlanTConfig
+from carla_garage_tpu_torch.models.vla import SimLingo, SimLingoConfig
 from carla_garage_tpu_torch.ops import kernel_cases
 from carla_garage_tpu_torch.ops.bev_fill import (fill_boxes,
                                                  fill_boxes_bev_plain,
@@ -415,13 +418,31 @@ GRAPH_B = 2
 GRAPH_PCFG = PlanTConfig(hidden=64, n_layers=2, n_heads=2, intermediate=256,
                          max_positions=64, max_objects=10,
                          num_route_points=6)
+# the benchmark's small SimLingo: two 56-pixel tiles and the thumbnail,
+# 14 query and 2 key-value heads
+GRAPH_VCFG = SimLingoConfig(**json.loads(
+    (pathlib.Path(__file__).resolve().parents[1] /
+     "portbench/configs/simlingo.json").read_text())["test_small"]["model"])
 
 
 def graph_model(kind, dev):
   """(module on the card in eval mode, inputs(seed, batch)): the micro
   TransFuser++ in float32 ("tfpp"), in bfloat16 ("tfpp_bf16"), with the
-  ImageNet normalisation ("tfpp_imagenet"), or the micro PlanT."""
+  ImageNet normalisation ("tfpp_imagenet"), the micro PlanT, or the small
+  SimLingo in float32 ("simlingo") or bfloat16 ("simlingo_bf16")."""
   torch.manual_seed(0)
+  if kind.startswith("simlingo"):
+    c = GRAPH_VCFG
+    dt = torch.bfloat16 if kind == "simlingo_bf16" else torch.float32
+
+    def inputs(seed, b=GRAPH_B):
+      g = torch.Generator().manual_seed(seed)
+      x = (torch.randn(b, c.n_tiles, 3, c.tile, c.tile, generator=g),
+           torch.randn(b, 2, 2, generator=g) * 10,
+           torch.rand(b, generator=g) * 8,
+           torch.eye(6)[torch.randint(0, 6, (b,), generator=g)])
+      return tuple(t.to(dev, dt) for t in x)
+    return SimLingo(c).to(dev, dt).eval(), inputs
   if kind == "plant":
     c = GRAPH_PCFG
 
@@ -476,7 +497,7 @@ def count_captures(monkeypatch):
 
 
 @pytest.mark.parametrize("kind", ["tfpp", "tfpp_bf16", "tfpp_imagenet",
-                                  "plant"])
+                                  "plant", "simlingo", "simlingo_bf16"])
 def test_graph_replays_the_eager_forward(cuda, kind, monkeypatch):
   """Three calls with fresh inputs: one capture; the outputs equal the
   eager forward's (float32 within 1e-6 relative, bf16 within the eager
@@ -501,7 +522,7 @@ def test_graph_replays_the_eager_forward(cuda, kind, monkeypatch):
   torch.cuda.synchronize()
   assert captures[0] == 1 and len(g.graphs) == 1
   spread = max(rel_gap(a, b) for a, b in zip(again, eager))
-  tol = 1e-6 if kind != "tfpp_bf16" else spread
+  tol = spread if kind.endswith("_bf16") else 1e-6
   for k in range(3):
     assert rel_gap(outs[k], eager[k]) <= tol, (k, spread)
     assert rel_gap(outs[k], kept[k]) == 0.0          # untouched since

@@ -316,9 +316,9 @@ def test_closed_loop_eval_matches_jax_composed(monkeypatch):
         break
     return st_
 
-  real_policy = tf.make_transfuser_policy
+  real_policy = tf.make_sensor_policy
   monkeypatch.setattr(tf, "rollout_chunked", replayed)
-  monkeypatch.setattr(tf, "make_transfuser_policy",
+  monkeypatch.setattr(tf, "make_sensor_policy",
                       lambda *a, **kw: real_policy(*a, **{**kw,
                                                           "bf16": False}))
   model = load_flax_params(ttf.LidarCenterNet(ttf.TransfuserConfig(

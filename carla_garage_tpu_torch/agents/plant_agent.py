@@ -11,13 +11,18 @@ it renders no sensor, launches no hand kernel and draws no random number
 between runs on the card and on the CPU. It makes no host sync. The spans
 of a tick (``utils/profiling.py``): ``agent.localize`` (the planners),
 ``agent.inputs`` (objects, route and flags), ``agent.model`` and
-``agent.control``.
+``agent.control``. On the card each replays a CUDA graph
+(``utils/cuda_graph``): the first two one ``GraphedStages`` call, the
+forward its ``GraphedForward``, the control a second ``GraphedStages``
+call, so a tick's thousand small launches become a few grouped copies and
+four replays.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 
 import torch
 
@@ -35,7 +40,8 @@ from carla_garage_tpu_torch.sim.route_planner import planner_step
 from carla_garage_tpu_torch.structs import (LightState, PIDState,
                                             PlannerState, Scene, SimState,
                                             Struct)
-from carla_garage_tpu_torch.utils.cuda_graph import GraphedForward
+from carla_garage_tpu_torch.utils.cuda_graph import (GraphedForward,
+                                                     GraphedStages)
 from carla_garage_tpu_torch.utils.profiling import span
 
 TARGET_SPEEDS = (0.0, 2.0, 5.0, 8.0)   # m/s of the target-speed classes
@@ -197,6 +203,89 @@ def extract_route(pcfg: PlanTConfig, scene: Scene, state: SimState,
   return geo.world_to_ego(pts, ego.pos[:, None], ego.yaw[:, None])
 
 
+def _localize(fixed: tuple, c: dict) -> dict:
+  """The route planners on the true pose."""
+  cfg, _, _, scene, _ = fixed
+  ag, ego, route = c["state"].agent, c["state"].ego, scene.route
+  pl_dense = planner_step(ag.planner_dense, route.points, route.seg_len,
+                          route.num_valid, ego.pos,
+                          _dense_planner_params(cfg))
+  pl_sparse = planner_step(
+      ag.planner_sparse, route.sparse_points,
+      _sparse_seg_len(route.sparse_points, route.sparse_num_valid),
+      route.sparse_num_valid, ego.pos, _sparse_planner_params(cfg))
+  return dict(c, pl_dense=pl_dense, pl_sparse=pl_sparse)
+
+
+def _inputs(fixed: tuple, c: dict) -> dict:
+  """The forward's inputs but the speed (objects, route, flags) and the
+  planners' state; the tick's state stays behind."""
+  cfg, pcfg, maps, scene, _ = fixed
+  state, pl_dense = c["state"], c["pl_dense"]
+  boxes, box_types = extract_objects(cfg, pcfg, scene, state)
+  route_tok = extract_route(pcfg, scene, state, pl_dense.idx)
+  light, stop, junction, cleared = privileged_flags(
+      cfg, maps, scene, state, state.agent.cleared_stop_signs, pl_dense.idx)
+  return dict(pl_dense=pl_dense, pl_sparse=c["pl_sparse"], cleared=cleared,
+              model_in=(boxes, box_types, route_tok, light, stop, junction))
+
+
+def _control(direct: bool, brake_threshold: float, creep: bool,
+             fixed: tuple, c: dict) -> dict:
+  """The forward's outputs -> the control and the agent's next state."""
+  cfg, _, _, _, target_speeds = fixed
+  state, out = c["state"], c["out"]
+  ag, ego = state.agent, state.ego
+  if direct:
+    probs = torch.softmax(out["pred_target_speed"], -1)
+    ts = torch.sum(probs * target_speeds, -1)
+    ts = torch.where(probs[:, 0] > brake_threshold, 0.0, ts)
+    aim = out["pred_checkpoint"][:, 2]
+    angle = torch.rad2deg(torch.atan2(aim[:, 1], aim[:, 0])) / 90.0
+    steer, throttle, brake, pt2, ps2 = control_pid_direct(
+        ag.pid_turn, ag.pid_speed, ts, angle, ego.speed, cfg)
+  else:
+    steer, throttle, brake, pt2, ps2 = control_pid(
+        ag.pid_turn, ag.pid_speed, out["pred_wp"], ego.speed, cfg)
+
+  stuck, force = ag.stuck_count, ag.force_move
+  if creep:
+    e, s = cfg.expert, cfg.sim
+    stuck = torch.where(ego.speed < 0.1, ag.stuck_count + 1, 0)
+    start_creep = stuck > e.stuck_threshold
+    force = torch.where(start_creep, e.creep_duration,
+                        torch.clamp(ag.force_move - 1, min=0))
+    fwd = torch.stack([torch.cos(ego.yaw), torch.sin(ego.yaw)], -1)
+    box_c = ego.pos + fwd * (s.ego_extent_x + 1.25)
+    box_e = torch.stack([torch.full_like(ego.yaw, 1.25),
+                         torch.full_like(ego.yaw, s.ego_extent_y * 0.8)], -1)
+    veh, wlk = state.vehicles, state.walkers
+    hit_v = geo.obb_intersect(box_c[:, None], ego.yaw[:, None],
+                              box_e[:, None], veh.pos, veh.yaw,
+                              veh.extent) & veh.valid
+    hit_w = geo.obb_intersect(box_c[:, None], ego.yaw[:, None],
+                              box_e[:, None], wlk.pos, wlk.yaw,
+                              wlk.extent) & wlk.valid
+    obstructed = torch.any(hit_v, -1) | torch.any(hit_w, -1)
+    creeping = (force > 0) & ~obstructed
+    # an obstructed creep re-arms for when the box clears
+    force = torch.where((force > 0) & obstructed, e.creep_duration, force)
+    throttle = torch.where(creeping, e.creep_throttle, throttle)
+    brake = torch.where(creeping, 0.0,
+                        torch.where((force > 0) & obstructed, 1.0, brake))
+    stuck = torch.where(creeping, 0, stuck)
+
+  new_ag = PlanTAgentState(
+      planner_dense=c["pl_dense"], planner_sparse=c["pl_sparse"],
+      pid_turn=pt2, pid_speed=ps2, cleared_stop_signs=c["cleared"],
+      stuck_count=stuck.to(torch.int32), force_move=force.to(torch.int32))
+  return dict(control=Control(steer=steer, throttle=throttle, brake=brake),
+              agent=new_ag)
+
+
+_BEFORE = (("agent.localize", _localize), ("agent.inputs", _inputs))
+
+
 def make_plant_policy(model: PlanT, params, pcfg: PlanTConfig,
                       direct: bool = False, brake_threshold: float = 0.5,
                       creep: bool = True):
@@ -215,13 +304,22 @@ def make_plant_policy(model: PlanT, params, pcfg: PlanTConfig,
   stuck_threshold ticks at ~zero speed, throttle for creep_duration frames
   unless the box just ahead of the ego holds a vehicle or a walker (a
   privileged OBB test in place of the LiDAR returns); an obstructed creep
-  brakes fully and re-arms."""
+  brakes fully and re-arms.
+
+  On the card the tick is three replays: ``agent.localize`` and
+  ``agent.inputs`` as one ``GraphedStages`` call, the forward's
+  ``GraphedForward``, then ``agent.control`` as a second call; the
+  policy's own graphs, which no other policy shares. Elsewhere the same
+  stages run eagerly."""
   if params is not None:
     model = copy.deepcopy(model)
     model.load_state_dict(params)
   model = model.eval()
   dev = next(model.parameters()).device
   forward = GraphedForward(model)     # a CUDA graph's replay on the card
+  before, after = GraphedStages(), GraphedStages()
+  control = (("agent.control",
+              functools.partial(_control, direct, brake_threshold, creep)),)
   target_speeds = const(TARGET_SPEEDS, dev)
 
   @torch.no_grad()
@@ -231,75 +329,15 @@ def make_plant_policy(model: PlanT, params, pcfg: PlanTConfig,
     if draws:
       raise KeyError(f"unknown draws {sorted(draws)}; the PlanT policy "
                      "draws nothing")
-    ag: PlanTAgentState = state.agent
-    ego = state.ego
-    with span("agent.localize"):
-      route = scene.route
-      pl_dense = planner_step(ag.planner_dense, route.points, route.seg_len,
-                              route.num_valid, ego.pos,
-                              _dense_planner_params(cfg))
-      pl_sparse = planner_step(
-          ag.planner_sparse, route.sparse_points,
-          _sparse_seg_len(route.sparse_points, route.sparse_num_valid),
-          route.sparse_num_valid, ego.pos, _sparse_planner_params(cfg))
-
-    with span("agent.inputs"):
-      boxes, box_types = extract_objects(cfg, pcfg, scene, state)
-      route_tok = extract_route(pcfg, scene, state, pl_dense.idx)
-      light, stop, junction, cleared = privileged_flags(
-          cfg, maps, scene, state, ag.cleared_stop_signs, pl_dense.idx)
-
+    fixed = (cfg, pcfg, maps, scene, target_speeds)
+    # the agent reads neither the expert's, the criteria's nor the
+    # scenarios' state: the graphs copy none of it in
+    seen = state.replace(expert=(), criteria=(), scenario=())
+    got = before(_BEFORE, fixed, dict(state=seen))
     with span("agent.model"):
-      out = forward(boxes, box_types, route_tok, light, stop, junction,
-                    ego.speed)
-
-    with span("agent.control"):
-      if direct:
-        probs = torch.softmax(out["pred_target_speed"], -1)
-        ts = torch.sum(probs * target_speeds, -1)
-        ts = torch.where(probs[:, 0] > brake_threshold, 0.0, ts)
-        aim = out["pred_checkpoint"][:, 2]
-        angle = torch.rad2deg(torch.atan2(aim[:, 1], aim[:, 0])) / 90.0
-        steer, throttle, brake, pt2, ps2 = control_pid_direct(
-            ag.pid_turn, ag.pid_speed, ts, angle, ego.speed, cfg)
-      else:
-        steer, throttle, brake, pt2, ps2 = control_pid(
-            ag.pid_turn, ag.pid_speed, out["pred_wp"], ego.speed, cfg)
-
-      stuck, force = ag.stuck_count, ag.force_move
-      if creep:
-        e, s = cfg.expert, cfg.sim
-        stuck = torch.where(ego.speed < 0.1, ag.stuck_count + 1, 0)
-        start_creep = stuck > e.stuck_threshold
-        force = torch.where(start_creep, e.creep_duration,
-                            torch.clamp(ag.force_move - 1, min=0))
-        fwd = torch.stack([torch.cos(ego.yaw), torch.sin(ego.yaw)], -1)
-        box_c = ego.pos + fwd * (s.ego_extent_x + 1.25)
-        box_e = torch.stack([torch.full_like(ego.yaw, 1.25),
-                             torch.full_like(ego.yaw, s.ego_extent_y * 0.8)],
-                            -1)
-        veh, wlk = state.vehicles, state.walkers
-        hit_v = geo.obb_intersect(box_c[:, None], ego.yaw[:, None],
-                                  box_e[:, None], veh.pos, veh.yaw,
-                                  veh.extent) & veh.valid
-        hit_w = geo.obb_intersect(box_c[:, None], ego.yaw[:, None],
-                                  box_e[:, None], wlk.pos, wlk.yaw,
-                                  wlk.extent) & wlk.valid
-        obstructed = torch.any(hit_v, -1) | torch.any(hit_w, -1)
-        creeping = (force > 0) & ~obstructed
-        # an obstructed creep re-arms for when the box clears
-        force = torch.where((force > 0) & obstructed, e.creep_duration, force)
-        throttle = torch.where(creeping, e.creep_throttle, throttle)
-        brake = torch.where(creeping, 0.0,
-                            torch.where((force > 0) & obstructed, 1.0, brake))
-        stuck = torch.where(creeping, 0, stuck)
-
-      new_ag = PlanTAgentState(
-          planner_dense=pl_dense, planner_sparse=pl_sparse,
-          pid_turn=pt2, pid_speed=ps2, cleared_stop_signs=cleared,
-          stuck_count=stuck.to(torch.int32), force_move=force.to(torch.int32))
-    return Control(steer=steer, throttle=throttle, brake=brake), \
-        {"agent": new_ag}
+      out = forward(*got.pop("model_in"), state.ego.speed)
+    got = after(control, fixed, dict(got, state=seen, out=out))
+    return got["control"], {"agent": got["agent"]}
 
   policy.draw_specs = ()                # the policy draws nothing
   return policy

@@ -1,8 +1,11 @@
 """On-card tests of the port's CUDA kernels (B1, B2 and the GroupNorm
 kernel) against their plain versions, of the models' forwards replayed as CUDA graphs
-(``utils/cuda_graph.GraphedForward``) against their eager forwards, and of
+(``utils/cuda_graph.GraphedForward``) against their eager forwards, of
 the simulator's tick after the policy replayed as CUDA graphs
-(``GraphedStages`` in ``sim/episode.sim_step``) against its eager tick.
+(``GraphedStages`` in ``sim/episode.sim_step``) against its eager tick,
+and of the PlanT policy's spans around its forward replayed as CUDA graphs
+(``GraphedStages`` in ``agents/plant_agent.make_plant_policy``) against
+the eager policy.
 
 They need an NVIDIA card with nvcc (Hopper, sm_90a) and skip elsewhere.
 This file imports no JAX, so it runs on a machine without it:
@@ -814,3 +817,156 @@ def test_sim_graph_spans(cuda, fresh_sim_graphs):
   assert 1 <= len(caps) <= 2
   assert all(by_id[s.parent].name == "sim.tick" for s in caps)
   assert all(s.elapsed_ms() >= 0 for s in spans)
+
+
+# --- the PlanT policy's eager spans as CUDA graphs -------------------------
+
+AGENT_STAGES = ("agent.localize", "agent.inputs", "agent.control")
+
+
+def agent_policy(monkeypatch, dev, direct=True):
+  """(the micro PlanT policy with creep, its two ``GraphedStages``)."""
+  made = []
+
+  class Kept(cuda_graph.GraphedStages):
+    def __init__(self):
+      super().__init__()
+      made.append(self)
+  torch.manual_seed(0)
+  with monkeypatch.context() as mp:
+    mp.setattr(pa, "GraphedStages", Kept)
+    policy = pa.make_plant_policy(PlanT(GRAPH_PCFG).to(dev), None,
+                                  GRAPH_PCFG, direct=direct, creep=True)
+  return policy, made
+
+
+def stuck_agent(state):
+  """`state` with the reset PlanT agent, episode 0 stuck, so that a creep
+  begins at once."""
+  B, dev = state.tick.shape[0], state.tick.device
+  ag = pa.plant_agent_reset(CFG, B, device=dev)
+  stuck = torch.zeros(B, dtype=torch.int32, device=dev)
+  stuck[0] = CFG.expert.stuck_threshold
+  return state.replace(agent=ag.replace(stuck_count=stuck))
+
+
+def watched(policy, captures, controls, per_tick):
+  """`policy`, keeping a copy of each control and agent state as soon as
+  it returns, and the captures each call made (the forward's included)."""
+  def call(*a, **kw):
+    n = captures[0]
+    out = policy(*a, **kw)
+    controls.append(tree_map(torch.clone, out))
+    per_tick.append(captures[0] - n)
+    return out
+  return call
+
+
+@pytest.mark.parametrize("direct", [True, False])
+def test_agent_graphs_replay_the_eager_policy(cuda, direct, monkeypatch,
+                                              fresh_sim_graphs):
+  """16 ticks with the policy's graphs and 16 eager from the same state
+  and seeds are bit-equal at every tick, states and controls, each state
+  and control copied as soon as its tick returned; the policy captures
+  in its first tick only (its two stage calls and the forward) and
+  replays after."""
+  captures = count_captures(monkeypatch)
+  sim = sim_scene(cuda)
+  policy, made = agent_policy(monkeypatch, cuda, direct)
+  state = stuck_agent(sim[3])
+  runs = []
+  for eager in (False, True):
+    controls, per_tick, kept = [], [], []
+    call = watched(policy, captures, controls, per_tick)
+    with torch.no_grad(), contextlib.ExitStack() as stack:
+      if eager:
+        stack.enter_context(sim_eager(monkeypatch))
+      states = sim_run(sim, call, state, kept=kept)
+    runs.append((states, controls, per_tick, kept))
+  torch.cuda.synchronize()
+  (g_states, g_controls, g_caps, g_kept), (e_states, e_controls, e_caps,
+                                           _) = runs
+  assert g_caps == [3] + [0] * (SIM_TICKS - 1)
+  assert e_caps == [0] * SIM_TICKS
+  assert [len(g.graphs) for g in made] == [1, 1]
+  for g, e, k in zip(g_states, e_states, g_kept):
+    equal_states(g, e)
+    equal_states(g, k)
+  for g, e in zip(g_controls, e_controls):
+    equal_states(g, e)
+  assert int(g_states[-1].tick.min()) == SIM_TICKS
+  assert any(int(c[1]["agent"].force_move[0]) > 0 for c in g_controls)
+
+
+def test_agent_graphs_follow_shapes_and_storage(cuda, monkeypatch,
+                                                fresh_sim_graphs):
+  """Another run on the same scene only replays; a new batch size (a new
+  scene) captures the two stage calls again, as does a scene whose
+  storage was replaced, each dropping the graphs before; every run is
+  bit-equal to the eager policy."""
+  captures = count_captures(monkeypatch)
+  policy, made = agent_policy(monkeypatch, cuda)
+
+  def both(sim, ticks=3):
+    state = stuck_agent(sim[3])
+    controls, per_tick = [], []
+    call = watched(policy, captures, controls, per_tick)
+    with torch.no_grad():
+      got = sim_run(sim, call, state, ticks)
+      with sim_eager(monkeypatch):
+        want = sim_run(sim, call, state, ticks)
+    for g, e in zip(got, want):
+      equal_states(g, e)
+    for g, e in zip(controls[:ticks], controls[ticks:]):
+      equal_states(g, e)
+    return sum(per_tick)
+
+  a = sim_scene(cuda)
+  assert both(a) == 3
+  assert both(a) == 0
+  b = sim_scene(cuda, batch=GRAPH_B + 1)
+  assert both(b) == 3                  # the forward's new shapes too
+  assert [len(g.graphs) for g in made] == [1, 1]
+  maps, lanes, scene, state = b
+  assert both((maps, lanes, tree_map(torch.clone, scene), state)) == 2
+  assert [len(g.graphs) for g in made] == [1, 1]
+
+
+def test_agent_graph_spans(cuda, fresh_sim_graphs):
+  """Each of the policy's spans holds one ``graph.replay`` a tick, the
+  forward's ``agent.model`` too; the policy's three ``graph.capture``
+  spans (its two stage calls', the forward's) open in the first tick
+  only."""
+  sim = sim_scene(cuda)
+  policy, state = sim_policy("plant", sim[3], cuda)
+  profiling.record(True)
+  try:
+    with torch.no_grad():
+      sim_run(sim, policy, state, ticks=4)
+    torch.cuda.synchronize()
+    spans = profiling.recorded()
+  finally:
+    profiling.record(False)
+    profiling.clear()
+  by_id = {s.id: s for s in spans}
+
+  def up(s, name):
+    while s.parent is not None:
+      s = by_id[s.parent]
+      if s.name == name:
+        return s
+    return None
+
+  for name in AGENT_STAGES + ("agent.model",):
+    stage = [s for s in spans if s.name == name]
+    assert len(stage) == 4, name
+    for s in stage:
+      inside = [r.name for r in spans if r.parent == s.id]
+      assert inside.count("graph.replay") == 1, name
+      assert set(inside) <= {"graph.replay", "graph.capture"}, name
+      assert by_id[s.parent].name == "sim.policy"
+  first = [s for s in spans if s.name == "sim.tick"][0]
+  caps = [s for s in spans if s.name == "graph.capture" and
+          up(s, "sim.policy") is not None]
+  assert len(caps) == 3
+  assert all(up(s, "sim.tick") is first for s in caps)

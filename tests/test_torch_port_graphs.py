@@ -361,3 +361,132 @@ def test_sim_step_spans_on_the_cpu(scene, no_cuda):
   assert layers == ["sim.policy", "sim.scenarios", "sim.dynamics",
                     "sim.traffic", "sim.criteria"]
   assert not any(s.name.startswith("graph.") for s in spans)
+
+
+def _plant_policy_before(model, pcfg, direct, brake_threshold=0.5,
+                         creep=True):
+  """``make_plant_policy``'s policy as it was written before its spans
+  became graph stages (one eager function of the tick)."""
+  from carla_garage_tpu_torch.agents.controllers import (control_pid,
+                                                         control_pid_direct)
+  from carla_garage_tpu_torch.device import const
+  from carla_garage_tpu_torch.sim import geometry as geo
+  from carla_garage_tpu_torch.sim.expert import (Control,
+                                                 _dense_planner_params,
+                                                 _sparse_planner_params,
+                                                 _sparse_seg_len)
+  from carla_garage_tpu_torch.sim.route_planner import planner_step
+  model = model.eval()
+  forward = GraphedForward(model)
+  target_speeds = const(pa.TARGET_SPEEDS, next(model.parameters()).device)
+
+  @torch.no_grad()
+  def policy(cfg, maps, scene, state, generator=None, draws=None):
+    ag = state.agent
+    ego = state.ego
+    route = scene.route
+    pl_dense = planner_step(ag.planner_dense, route.points, route.seg_len,
+                            route.num_valid, ego.pos,
+                            _dense_planner_params(cfg))
+    pl_sparse = planner_step(
+        ag.planner_sparse, route.sparse_points,
+        _sparse_seg_len(route.sparse_points, route.sparse_num_valid),
+        route.sparse_num_valid, ego.pos, _sparse_planner_params(cfg))
+    boxes, box_types = pa.extract_objects(cfg, pcfg, scene, state)
+    route_tok = pa.extract_route(pcfg, scene, state, pl_dense.idx)
+    light, stop, junction, cleared = pa.privileged_flags(
+        cfg, maps, scene, state, ag.cleared_stop_signs, pl_dense.idx)
+    out = forward(boxes, box_types, route_tok, light, stop, junction,
+                  ego.speed)
+    if direct:
+      probs = torch.softmax(out["pred_target_speed"], -1)
+      ts = torch.sum(probs * target_speeds, -1)
+      ts = torch.where(probs[:, 0] > brake_threshold, 0.0, ts)
+      aim = out["pred_checkpoint"][:, 2]
+      angle = torch.rad2deg(torch.atan2(aim[:, 1], aim[:, 0])) / 90.0
+      steer, throttle, brake, pt2, ps2 = control_pid_direct(
+          ag.pid_turn, ag.pid_speed, ts, angle, ego.speed, cfg)
+    else:
+      steer, throttle, brake, pt2, ps2 = control_pid(
+          ag.pid_turn, ag.pid_speed, out["pred_wp"], ego.speed, cfg)
+    stuck, force = ag.stuck_count, ag.force_move
+    if creep:
+      e, s = cfg.expert, cfg.sim
+      stuck = torch.where(ego.speed < 0.1, ag.stuck_count + 1, 0)
+      start_creep = stuck > e.stuck_threshold
+      force = torch.where(start_creep, e.creep_duration,
+                          torch.clamp(ag.force_move - 1, min=0))
+      fwd = torch.stack([torch.cos(ego.yaw), torch.sin(ego.yaw)], -1)
+      box_c = ego.pos + fwd * (s.ego_extent_x + 1.25)
+      box_e = torch.stack([torch.full_like(ego.yaw, 1.25),
+                           torch.full_like(ego.yaw, s.ego_extent_y * 0.8)],
+                          -1)
+      veh, wlk = state.vehicles, state.walkers
+      hit_v = geo.obb_intersect(box_c[:, None], ego.yaw[:, None],
+                                box_e[:, None], veh.pos, veh.yaw,
+                                veh.extent) & veh.valid
+      hit_w = geo.obb_intersect(box_c[:, None], ego.yaw[:, None],
+                                box_e[:, None], wlk.pos, wlk.yaw,
+                                wlk.extent) & wlk.valid
+      obstructed = torch.any(hit_v, -1) | torch.any(hit_w, -1)
+      creeping = (force > 0) & ~obstructed
+      force = torch.where((force > 0) & obstructed, e.creep_duration, force)
+      throttle = torch.where(creeping, e.creep_throttle, throttle)
+      brake = torch.where(creeping, 0.0,
+                          torch.where((force > 0) & obstructed, 1.0, brake))
+      stuck = torch.where(creeping, 0, stuck)
+    new_ag = pa.PlanTAgentState(
+        planner_dense=pl_dense, planner_sparse=pl_sparse,
+        pid_turn=pt2, pid_speed=ps2, cleared_stop_signs=cleared,
+        stuck_count=stuck.to(torch.int32), force_move=force.to(torch.int32))
+    return Control(steer=steer, throttle=throttle, brake=brake), \
+        {"agent": new_ag}
+
+  return policy
+
+
+@pytest.mark.parametrize("direct,creep", [(True, True), (False, True),
+                                          (True, False)])
+def test_plant_policy_on_the_cpu_is_the_eager_policy(scene, direct, creep,
+                                                     no_cuda):
+  """The PlanT policy's graph stages run eagerly on the CPU: over four
+  ticks, its control and next agent state equal the policy as written
+  before, leaf for leaf and bit for bit, from the same states (episode 0
+  starts stuck, so a creep begins), and it captures nothing."""
+  maps, lanes, scn, state = scene
+  torch.manual_seed(0)
+  model = PlanT(PCFG)
+  policy = pa.make_plant_policy(model, None, PCFG, direct=direct,
+                                creep=creep)
+  before = _plant_policy_before(model, PCFG, direct, creep=creep)
+  ag = pa.plant_agent_reset(CFG, B, device="cpu")
+  stuck = torch.tensor([CFG.expert.stuck_threshold, 0], dtype=torch.int32)
+  st = state.replace(agent=ag.replace(stuck_count=stuck))
+  gen = torch.Generator().manual_seed(7)
+  for _ in range(4):
+    got = policy(CFG, maps, scn, st)
+    want = before(CFG, maps, scn, st)
+    _equal_trees(got, want)
+    st = sim_step(CFG, maps, lanes, scn, st, policy, generator=gen)
+  assert int(st.tick.min()) == 4
+  if creep:
+    assert int(st.agent.force_move[0]) > 0 or \
+        int(st.agent.stuck_count[0]) == CFG.expert.stuck_threshold + 4
+
+
+def test_plant_policy_spans_on_the_cpu(scene, no_cuda):
+  """One tick: ``agent.localize``, ``agent.inputs``, ``agent.model`` and
+  ``agent.control`` in that order, side by side, and no ``graph.*``
+  span."""
+  maps, _, scn, state = scene
+  policy, st = _policy("plant", state)
+  profiling.record(True)
+  try:
+    policy(CFG, maps, scn, st)
+    spans = profiling.recorded()
+  finally:
+    profiling.record(False)
+    profiling.clear()
+  assert [s.name for s in spans if s.parent is None] == [
+      "agent.localize", "agent.inputs", "agent.model", "agent.control"]
+  assert not any(s.name.startswith("graph.") for s in spans)

@@ -14,9 +14,11 @@ frames voxelized), ``agent.model``
 ``agent.control``.
 
 A camera-only vision-language-action model (``models.vla.SimLingo``,
-its config a ``SimLingoConfig``) goes through the same policy: the
-camera frame becomes InternVL2's 448-pixel tiles and thumbnail
-(``camera_tiles``), the model takes two target points and no LiDAR BEV
+its config a ``SimLingoConfig``, or ``models.kimi_vl.KimiVL`` with a
+``KimiVLConfig``) goes through the same policy: the camera frame becomes
+InternVL2's 448-pixel tiles and thumbnail (``camera_tiles``) for
+SimLingo, or stays whole at native resolution for Kimi-VL's MoonViT
+(``camera_native``), the model takes two target points and no LiDAR BEV
 (the half sweep is still rendered for the creep recovery's safety box),
 and the controller steers at a point of its predicted path and takes
 the speed from its speed waypoints.
@@ -52,6 +54,7 @@ from carla_garage_tpu_torch.device import const, resolve_device
 from carla_garage_tpu_torch.models.transfuser import (LidarCenterNet,
                                                       TransfuserConfig,
                                                       lidar_history)
+from carla_garage_tpu_torch.models.kimi_vl import KimiVLConfig
 from carla_garage_tpu_torch.models.vla import SimLingoConfig
 from carla_garage_tpu_torch.ops.detection import topk_decode
 from carla_garage_tpu_torch.ops.jpeg import jpeg_artifacts
@@ -78,6 +81,8 @@ TARGET_SPEEDS = (0.0, 2.0, 5.0, 8.0)   # m/s of the target-speed classes
 DRAW_KEYS = ("gps", "compass", "lidar")
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+SIGLIP_MEAN = SIGLIP_STD = 0.5    # MoonViT's normalisation
+VLA_CONFIGS = (SimLingoConfig, KimiVLConfig)
 PATH_AIM = 2                 # the path point (1 m apart) a VLA steers at
 
 
@@ -167,6 +172,21 @@ def camera_tiles(rgb: torch.Tensor, tile: int) -> torch.Tensor:
   return (tiles - mean) / std
 
 
+def camera_native(rgb: torch.Tensor) -> torch.Tensor:
+  """The whole frame at native resolution, as MoonViT takes it: rgb
+  [B,H,W,3] in 0..1 -> [B,3,H,W], normalised by SigLIP's mean and std
+  (0.5 each)."""
+  return (rgb.permute(0, 3, 1, 2) - SIGLIP_MEAN) / SIGLIP_STD
+
+
+def camera_inputs(rgb: torch.Tensor, tcfg) -> torch.Tensor:
+  """A VLA's camera input, by its configuration: SimLingo's tiles, or
+  Kimi-VL's whole frame."""
+  if isinstance(tcfg, SimLingoConfig):
+    return camera_tiles(rgb, tcfg.tile)
+  return camera_native(rgb)
+
+
 def path_speed(pred_wp: torch.Tensor) -> torch.Tensor:
   """A VLA's target speed from its speed waypoints: ``control_pid``'s
   desired speed, 0 (a brake) where ``control_pid`` brakes for it."""
@@ -182,7 +202,15 @@ def command_onehot(cmd: torch.Tensor) -> torch.Tensor:
 def _members(model: LidarCenterNet, params, bf16: bool):
   """The modules the policy runs: `model` itself when params is None,
   else one copy of it per state dict (an ensemble for a list), all in
-  eval mode and, with bf16, cast to bfloat16 once here."""
+  eval mode and, with bf16, cast to bfloat16 once here. A model already
+  placed in bfloat16 (``bf16_placed``, as ``KimiVL.load_published``
+  leaves it, its routers' weights in float32) runs as it is: a copy of
+  its 16B parameters would not fit beside it."""
+  if bf16 and getattr(model, "bf16_placed", False):
+    if params is not None:
+      raise ValueError("a model placed in bf16 drives with its own "
+                       "weights")
+    return [model.eval()]
   if params is None:
     mods = [model]
   else:
@@ -209,7 +237,8 @@ def make_transfuser_policy(model: LidarCenterNet, params,
   """The sensor pipeline + model + control as a policy for ``sim_step``.
 
   model: a LidarCenterNet on the device the policy runs on, or a
-  ``SimLingo`` with its ``SimLingoConfig`` as `tcfg` (camera only, two
+  ``SimLingo`` with its ``SimLingoConfig`` as `tcfg`, or a ``KimiVL``
+  with its ``KimiVLConfig`` (camera only, two
   target points, the path-and-speed controller; `direct`,
   `uncertainty_weight`, `brake_threshold` and `stop_control` do not
   apply to it). params: None
@@ -238,7 +267,7 @@ def make_transfuser_policy(model: LidarCenterNet, params,
   g_rear = torch.as_tensor(lidar_grid_rear, device=dev).reshape(-1, 3)
   target_speeds = const(TARGET_SPEEDS, dev)
 
-  vla = isinstance(tcfg, SimLingoConfig)
+  vla = isinstance(tcfg, VLA_CONFIGS)
 
   def fwd(m, *inputs):
     if not bf16:
@@ -300,7 +329,7 @@ def make_transfuser_policy(model: LidarCenterNet, params,
       if jpeg_quality is not None:
         cam = dict(cam, rgb=jpeg_artifacts(cam["rgb"], quality=jpeg_quality))
       if vla:
-        tiles = camera_tiles(cam["rgb"], tcfg.tile)
+        tiles = camera_inputs(cam["rgb"], tcfg)
       even = (state.tick % 2 == 0)[:, None, None]
       grid_sel = torch.where(even, g_front[None], g_rear[None])
       pts_now, val_now = render_lidar(cfg, maps, scene, state, grid_sel,
@@ -418,9 +447,9 @@ def make_transfuser_policy(model: LidarCenterNet, params,
 def sensor_grids(cfg: GlobalConfig, tcfg, camera_scale: int = 1,
                  lidar_decimate: int = 1) -> tuple:
   """The ray grids (camera, LiDAR front half, LiDAR rear half) of
-  `cfg`'s sensor rig; a VLA's camera is its own (``SimLingoConfig``'s
+  `cfg`'s sensor rig; a VLA's camera is its own (its config's
   ``camera_*``: InternVL2's tiling needs whole tiles)."""
-  if isinstance(tcfg, SimLingoConfig):
+  if isinstance(tcfg, VLA_CONFIGS):
     cfg = cfg.replace(sensor=dataclasses.replace(
         cfg.sensor, camera_width=tcfg.camera_width,
         camera_height=tcfg.camera_height, camera_fov=tcfg.camera_fov))
@@ -439,7 +468,7 @@ def make_sensor_policy(model, params, tcfg, grids: tuple, **policy_kw):
   policy = make_transfuser_policy(model, params, tcfg, cam, lid_f, lid_r,
                                   **policy_kw)
   n_lidar = lid_f.shape[0] * lid_f.shape[1]
-  seq_len = 1 if isinstance(tcfg, SimLingoConfig) else lidar_history(tcfg)
+  seq_len = 1 if isinstance(tcfg, VLA_CONFIGS) else lidar_history(tcfg)
 
   def reset(cfg: GlobalConfig, B: int, device="cuda") -> SensorAgentState:
     return sensor_agent_reset(cfg, B, n_lidar, seq_len=seq_len,

@@ -312,9 +312,64 @@ def numeric_mlp(n_in: int, width: int) -> nn.Sequential:
                        nn.Linear(width, width))
 
 
+# --- the driving glue -----------------------------------------------------------
+
+class DrivingGlue(nn.Module):
+  """SimLingo's driving inputs and read-outs around a vision-language
+  model, shared by every VLA of the port (``SimLingo``, ``kimi_vl.KimiVL``):
+  the prompt's template and command ids (``prompt_ids``), the image tokens
+  spliced in after ``image_at`` ids, the two target-point tokens and the
+  speed token (each a small MLP), the learned queries last, and their
+  read-outs. Its parameters and buffers sit on the model itself, under the
+  names the checkpoints and the benchmark's layouts give them."""
+
+  def init_glue(self, c, hidden: int):
+    """Register the glue's parameters and buffers for config `c` (its
+    ``template_len``, ``image_at``, ``template_seed``, ``regular_ids``,
+    ``path_points`` and ``speed_points``) at the decoder's width."""
+    self.target_point_mlp = numeric_mlp(2, hidden)
+    self.speed_mlp = numeric_mlp(1, hidden)
+    self.queries = nn.Parameter(torch.zeros(c.path_points + c.speed_points,
+                                            hidden))
+    self.path_head = nn.Linear(hidden, 2)
+    self.wp_head = nn.Linear(hidden, 2)
+    self.init_prompt(c)
+
+  def init_prompt(self, c, device=None):
+    template, commands = prompt_ids(c)
+    self.register_buffer("template_ids", template.to(device),
+                         persistent=False)
+    self.register_buffer("command_ids", commands.to(device),
+                         persistent=False)
+
+  def splice(self, table: nn.Embedding, image, target_points, speed,
+             command):
+    """The decoder's input sequence [B, seq_len, hidden]: the template
+    (its last id the command's) with the image tokens after its first
+    ``image_at`` ids, the target points, the speed and the queries."""
+    c = self.cfg
+    B = image.shape[0]
+    tmpl = table(self.template_ids)[None].expand(B, -1, -1)
+    # the command's row by a one-hot product: exact, and no host sync
+    cmd = (command.to(table.weight.dtype) @ table(self.command_ids))[:, None]
+    tmpl = torch.cat([tmpl[:, :-1], cmd], 1)
+    numbers = torch.cat([self.target_point_mlp(target_points),
+                         self.speed_mlp(speed[:, None, None])], 1)
+    queries = self.queries[None].expand(B, -1, -1)
+    return torch.cat([tmpl[:, :c.image_at], image, tmpl[:, c.image_at:],
+                      numbers, queries], 1)
+
+  def read_out(self, q) -> dict:
+    """The queries' final states [B, path_points + speed_points, hidden]
+    -> {"pred_path": [B,P,2], "pred_wp": [B,W,2]}."""
+    P = self.cfg.path_points
+    return {"pred_path": self.path_head(q[:, :P]),
+            "pred_wp": self.wp_head(q[:, P:])}
+
+
 # --- the driving model ----------------------------------------------------------
 
-class SimLingo(nn.Module):
+class SimLingo(DrivingGlue):
   """InternVL2-1B with SimLingo's driving inputs and read-outs (see the
   module's docstring)."""
 
@@ -327,15 +382,7 @@ class SimLingo(nn.Module):
                               nn.Linear(w4, c.hidden), nn.GELU(),
                               nn.Linear(c.hidden, c.hidden))
     self.language_model = Qwen2(c)
-    self.target_point_mlp = numeric_mlp(2, c.hidden)
-    self.speed_mlp = numeric_mlp(1, c.hidden)
-    self.queries = nn.Parameter(torch.zeros(c.path_points + c.speed_points,
-                                            c.hidden))
-    self.path_head = nn.Linear(c.hidden, 2)
-    self.wp_head = nn.Linear(c.hidden, 2)
-    template, commands = prompt_ids(c)
-    self.register_buffer("template_ids", template, persistent=False)
-    self.register_buffer("command_ids", commands, persistent=False)
+    self.init_glue(c, c.hidden)
 
   def image_tokens(self, tiles):
     """tiles [B,T,3,S,S] -> [B, T * tokens_per_tile, hidden]."""
@@ -346,21 +393,9 @@ class SimLingo(nn.Module):
     return self.mlp1(x.reshape(B, -1, x.shape[-1]))
 
   def embed(self, image, target_points, speed, command):
-    """The decoder's input sequence [B, seq_len, hidden]: the template
-    (its last id the command's) with the image tokens after its first
-    ``image_at`` ids, the target points, the speed and the queries."""
-    c = self.cfg
-    B = image.shape[0]
-    table = self.language_model.embed_tokens
-    tmpl = table(self.template_ids)[None].expand(B, -1, -1)
-    # the command's row by a one-hot product: exact, and no host sync
-    cmd = (command.to(table.weight.dtype) @ table(self.command_ids))[:, None]
-    tmpl = torch.cat([tmpl[:, :-1], cmd], 1)
-    numbers = torch.cat([self.target_point_mlp(target_points),
-                         self.speed_mlp(speed[:, None, None])], 1)
-    queries = self.queries[None].expand(B, -1, -1)
-    return torch.cat([tmpl[:, :c.image_at], image, tmpl[:, c.image_at:],
-                      numbers, queries], 1)
+    """The decoder's input sequence (``DrivingGlue.splice``)."""
+    return self.splice(self.language_model.embed_tokens, image,
+                       target_points, speed, command)
 
   def forward(self, tiles, target_points, speed, command):
     c = self.cfg
@@ -375,6 +410,4 @@ class SimLingo(nn.Module):
       x = x.float()
       for layer in lm.layers:
         x = layer(x, cos, sin)
-      q = lm.norm(x[:, -(c.path_points + c.speed_points):])
-      return {"pred_path": self.path_head(q[:, :c.path_points]),
-              "pred_wp": self.wp_head(q[:, c.path_points:])}
+      return self.read_out(lm.norm(x[:, -(c.path_points + c.speed_points):]))

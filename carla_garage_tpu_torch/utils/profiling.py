@@ -50,6 +50,7 @@ _capture = False         # inside capturing()
 _opened = 0              # live spans opened so far
 _markers = None          # the marker kernels' library, once loaded
 _marker_ids = {}         # span name -> marker id, as spans first mark
+_counters = {}           # counter name -> device tensor (``counter``)
 
 
 class Span:
@@ -195,6 +196,20 @@ def _load_markers():
   if err != 0:
     raise RuntimeError(f"span markers failed to load: CUDA error {err}")
   _markers = lib
+
+
+def counter(name: str, value: torch.Tensor) -> torch.Tensor:
+  """Name a device tensor that the program keeps up to date in place (a
+  count that a graph replay adds to, with no host sync), for a reader to
+  take after the run; returns it. Costs a dict entry, recorder on or
+  off."""
+  _counters[name] = value
+  return value
+
+
+def counters() -> dict:
+  """{name: tensor} of the program's counters (``counter``)."""
+  return dict(_counters)
 
 
 def marker_ids() -> dict:

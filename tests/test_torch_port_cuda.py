@@ -3,9 +3,12 @@ kernel) against their plain versions, of the models' forwards replayed as CUDA g
 (``utils/cuda_graph.GraphedForward``) against their eager forwards, of
 the simulator's tick after the policy replayed as CUDA graphs
 (``GraphedStages`` in ``sim/episode.sim_step``) against its eager tick,
-and of the PlanT policy's spans around its forward replayed as CUDA graphs
+of the PlanT policy's spans around its forward replayed as CUDA graphs
 (``GraphedStages`` in ``agents/plant_agent.make_plant_policy``) against
-the eager policy.
+the eager policy, and of Kimi-VL (``models/kimi_vl.py``): its whole
+forward as one graph replay with no host sync, bit-equal to the eager
+forward, and its grouped expert GEMMs against the loop over experts at
+the published widths.
 
 They need an NVIDIA card with nvcc (Hopper, sm_90a) and skip elsewhere.
 This file imports no JAX, so it runs on a machine without it:
@@ -29,6 +32,8 @@ from carla_garage_tpu_torch.agents import sensor_agent as sa
 from carla_garage_tpu_torch.config import DEFAULT_CONFIG as CFG
 from carla_garage_tpu_torch.models import transfuser as ttf
 from carla_garage_tpu_torch.models.plant import PlanT, PlanTConfig
+from carla_garage_tpu_torch.models import moe
+from carla_garage_tpu_torch.models.kimi_vl import KimiVL, KimiVLConfig
 from carla_garage_tpu_torch.models.vla import SimLingo, SimLingoConfig
 from carla_garage_tpu_torch.ops import kernel_cases
 from carla_garage_tpu_torch.ops.bev_fill import (fill_boxes,
@@ -970,3 +975,114 @@ def test_agent_graph_spans(cuda, fresh_sim_graphs):
           up(s, "sim.policy") is not None]
   assert len(caps) == 3
   assert all(up(s, "sim.tick") is first for s in caps)
+
+
+# --- Kimi-VL: the forward as one graph, the grouped expert GEMMs ------------
+
+KIMI_SMALL = KimiVLConfig(**json.loads(
+    (pathlib.Path(__file__).resolve().parents[1] /
+     "portbench/configs/kimi_vl.json").read_text())["test_small"]["model"])
+
+
+def kimi_model(c: KimiVLConfig, dev, seed: int = 0) -> KimiVL:
+  """A Kimi-VL built on the meta device and loaded in bf16 on `dev` with
+  random weights (matrices at variance 1/fan-in, norms' gains near 1)."""
+  with torch.device("meta"):
+    m = KimiVL(c)
+  shapes = dict(m.published_spec())
+  g = torch.Generator(device=dev).manual_seed(seed)
+
+  def fetch(name):
+    shape = shapes[name]
+    u = torch.rand(shape, generator=g, device=dev) * 2 - 1
+    if len(shape) >= 2:
+      return u * (3.0 / np.prod(shape[1:])) ** 0.5
+    return 1 + 0.1 * u if name.endswith("weight") else 0.1 * u
+  return m.load_published(fetch, torch.bfloat16).eval()
+
+
+def kimi_inputs(c: KimiVLConfig, dev, seed: int, b: int = GRAPH_B):
+  g = torch.Generator().manual_seed(seed)
+  x = (torch.randn(b, 3, c.camera_height, c.camera_width, generator=g),
+       torch.randn(b, 2, 2, generator=g) * 10,
+       torch.rand(b, generator=g) * 8,
+       torch.eye(6)[torch.randint(0, 6, (b,), generator=g)])
+  return tuple(t.to(dev, torch.bfloat16) for t in x)
+
+
+def test_kimi_vl_forward_is_one_graph_replay(cuda, monkeypatch):
+  """The small Kimi-VL in bf16: its eager forward makes no host sync
+  (``set_sync_debug_mode("error")``), so its whole forward is captured
+  once; three replays with fresh inputs equal the eager forward bit for
+  bit, and the expert-load counter took every token-expert pair of the
+  two warm-up calls and the three replays, layer by layer."""
+  c = KIMI_SMALL
+  m = kimi_model(c, cuda)
+  captures = count_captures(monkeypatch)
+  g = cuda_graph.GraphedForward(m)
+  xs = [kimi_inputs(c, cuda, k) for k in range(3)]
+  with torch.no_grad():
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+      eager = [m.forward(*x) for x in xs]
+    finally:
+      torch.cuda.set_sync_debug_mode("default")
+    m.expert_load.zero_()
+    outs = [g(*x) for x in xs]
+  torch.cuda.synchronize()
+  assert captures[0] == 1 and len(g.graphs) == 1
+  for k in range(3):
+    for key in ("pred_path", "pred_wp"):
+      assert torch.equal(outs[k][key], eager[k][key]), (k, key)
+  pairs = GRAPH_B * c.seq_len * c.num_experts_per_tok
+  assert m.expert_load.sum(1).tolist() == [5 * pairs] * c.moe_layers
+
+
+def published_moe(dev, seed: int = 0) -> moe.MoE:
+  """One mixture-of-experts layer of Kimi-VL at its published widths in
+  bf16, random weights."""
+  c = KimiVLConfig()
+  torch.manual_seed(seed)
+  layer = moe.MoE(c.hidden_size, c.n_routed_experts, c.num_experts_per_tok,
+                  c.moe_intermediate_size, c.n_shared_experts,
+                  c.routed_scaling_factor)
+  with torch.no_grad():
+    for p in layer.parameters():
+      p.uniform_(-1, 1).mul_((3.0 / p.shape[-1]) ** 0.5)
+  layer = layer.to(dev, torch.bfloat16)
+  layer.gate.float()
+  return layer
+
+
+@pytest.mark.parametrize("spread", ["random", "six_experts_only"])
+def test_kimi_vl_grouped_gemm_matches_the_loop(cuda, spread):
+  """The grouped GEMM path (``torch._grouped_mm`` over device offsets)
+  against the loop over experts on one MoE layer at the published widths
+  and a tick's 16 x 583 tokens: every pair routed once (the counts sum to
+  tokens x 6), no host sync, and the outputs within bf16's rounding of
+  each other (the two paths' GEMMs accumulate in different orders). With
+  the selection bias pushed onto experts 0..5 every token takes the same
+  six and the other 58 groups are empty."""
+  c = KimiVLConfig()
+  layer = published_moe(cuda)
+  if spread == "six_experts_only":
+    with torch.no_grad():
+      layer.gate.e_score_correction_bias[:6] += 10.0
+  N = 16 * c.seq_len
+  g = torch.Generator(device=cuda).manual_seed(1)
+  x = torch.randn(N, c.hidden_size, generator=g, device=cuda) \
+      .to(torch.bfloat16)
+  load = torch.zeros(c.n_routed_experts, dtype=torch.int64, device=cuda)
+  with torch.no_grad():
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+      grouped = layer(x, load=load, grouped=True)
+    finally:
+      torch.cuda.set_sync_debug_mode("default")
+    loop = layer(x, grouped=False)
+  assert moe.grouped_available(x)
+  assert int(load.sum()) == N * c.num_experts_per_tok
+  if spread == "six_experts_only":
+    assert load[:6].tolist() == [N] * 6 and int(load[6:].sum()) == 0
+  gap = float((grouped - loop).norm() / loop.norm())
+  assert gap < 2 ** -8, gap
